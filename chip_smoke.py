@@ -1,16 +1,19 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``npvp_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases 1,2]
 
 Builds the temporal-attention kernel from ``npvp_tpu_torch/kernels/csrc``
-with nvcc, then runs five phases, each printing its own lines:
+with nvcc, then runs five phases (all of them by default; ``--phases``
+picks some, for a short check), each printing its own lines:
 
 1. environment: the card's name and power limit, torch, CUDA, nvcc, the
-   kernel's build time and ptxas' registers and spills;
+   kernel's build time, ptxas' registers and spills, and the dynamic shared
+   memory of one block of each variant;
 2. kernel against its plain PyTorch twin at the flagship call-site shapes,
-   a ragged site count and Tq ≠ Tk, fp32 (tol 1e-4) and bf16 (tol 2e-2),
-   both variants (fused output projection, attention only);
+   a ragged site count, Tq ≠ Tk and a query row whose keys are all masked,
+   fp32 (tol 1e-4) and bf16 (tol 2e-2), both variants (fused output
+   projection, attention only);
 3. the golden fixture: the port in fp32 with the kernel launched against
    the JAX package's committed outputs (NPVP-D and NPVP-S, VFP and
    fractional-time HVRC), atol 1e-4;
@@ -18,8 +21,10 @@ with nvcc, then runs five phases, each printing its own lines:
    a seed, batch 64, VFP 10→10, bf16) through ``VideoPredictor.freeze_task``:
    launches per forward, kernel path against the plain path, ms per
    forward, predicted frames/s, peak memory; then a profiler breakdown;
-5. per call site: kernel, plain twin and library (SDPA plus F.linear) times
-   beside the least time the card could take (bytes or FLOP bound).
+5. per call site and variant: kernel, plain twin and library (SDPA, plus
+   F.linear when fused) times beside the least time the card could take
+   (bytes or FLOP bound), kernel ÷ bound, and whether the kernel beats the
+   library call.
 
 Any failure exits non-zero; without CUDA it exits non-zero at once. The last
 three lines are the kernels' JSON record, the card's name and power limit,
@@ -51,7 +56,8 @@ SITES = [("window", 2560, 16, 16, None, 12),
          ("temporal_dec", 4096, 10, 10, None, 8),
          ("cross", 4096, 10, 10, None, 8)]
 EXTRA = [("ragged", 4099, 10, 10, "hide_last"),
-         ("tq_ne_tk", 1000, 10, 7, "random")]
+         ("tq_ne_tk", 1000, 10, 7, "random"),
+         ("masked_row", 4096, 10, 10, "masked_row")]
 NH, HD = 8, 512
 
 
@@ -85,6 +91,12 @@ def phase_environment(torch, ta):
           f"{Path(lib).relative_to(HERE)}")
     for line in ta.BUILD_INFO.get("ptxas", []):
         print("  " + line)
+    for name, _, Tq, Tk, _, _ in SITES[:2]:
+        for fuse in (True, False):
+            print(f"dynamic shared memory per block, bf16 "
+                  f"{'fused' if fuse else 'attention only'} {name} "
+                  f"(Tq={Tq}, Tk={Tk}): "
+                  f"{ta.smem_bytes(Tq, Tk, HD, NH, torch.bfloat16, fuse)} B")
 
 
 def make_inputs(torch, B, Tq, Tk, mask, dtype, fuse, seed=0):
@@ -102,9 +114,11 @@ def make_inputs(torch, B, Tq, Tk, mask, dtype, fuse, seed=0):
         else:
             allow = torch.rand((Tq, Tk), generator=g, device=dev) > 0.4
             allow[:, 0] = True
+            if mask == "masked_row":  # query 3 sees no key
+                allow[3] = False
         bias = allow_to_bias(allow)
     wo = bo = None
-    if fuse:
+    if fuse:  # (C, H·D), nn.Linear's weight
         wo = (rnd(HD, HD) / HD ** 0.5).to(dtype)
         bo = rnd(HD) * 0.1
     return dict(q=q.to(dtype), k=k.to(dtype), v=v.to(dtype), bias=bias,
@@ -327,7 +341,8 @@ def phase_per_call(torch, ta):
 
     dtype = torch.bfloat16
     per_forward = {v: dict(ms=0.0, plain_ms=0.0, library_ms=0.0,
-                           bound_ms=0.0, by={"bytes": 0.0, "ops": 0.0})
+                           bound_ms=0.0, by={"bytes": 0.0, "ops": 0.0},
+                           per_call=[])
                    for v in ("oproj", "attn")}
     for name, B, Tq, Tk, mask, calls in SITES:
         for variant in ("oproj", "attn"):
@@ -337,14 +352,14 @@ def phase_per_call(torch, ta):
             kw = dict(num_heads=NH, wo=x["wo"], bo=x["bo"])
             hd = HD // NH
             heads = lambda t: t.view(B, -1, NH, hd).transpose(1, 2)  # noqa
-            wo_t = None if not fuse else x["wo"].t().contiguous()
             allow = None if x["bias"] is None else x["bias"] == 0
 
             def library():
                 ctx = F.scaled_dot_product_attention(
                     heads(x["q"]), heads(x["k"]), heads(x["v"]),
                     attn_mask=allow).transpose(1, 2).reshape(B, Tq, HD)
-                return F.linear(ctx, wo_t, x["bo"].to(dtype)) if fuse else ctx
+                return (F.linear(ctx, x["wo"], x["bo"].to(dtype)) if fuse
+                        else ctx)
 
             saved = dict(ta.LAUNCHES)
             k_ms = time_call(torch, lambda: ta.temporal_attention(*args,
@@ -368,8 +383,13 @@ def phase_per_call(torch, ta):
                   f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, library "
                   f"{l_ms:.4f} ms, bound {bound:.4f} ms (bytes "
                   f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); "
+                  f"kernel/bound {k_ms / bound:.2f}, kernel/library "
+                  f"{k_ms / l_ms:.3f}, "
+                  f"{'beats' if k_ms < l_ms else 'LOSES TO'} the library; "
                   f"{calls}/forward")
             acc = per_forward[variant]
+            acc["per_call"].append(dict(site=name, ms=k_ms, plain_ms=p_ms,
+                                        library_ms=l_ms, bound_ms=bound))
             acc["ms"] += calls * k_ms
             acc["plain_ms"] += calls * p_ms
             acc["library_ms"] += calls * l_ms
@@ -379,7 +399,16 @@ def phase_per_call(torch, ta):
     return per_forward
 
 
-def main() -> int:
+def main(argv) -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--phases", help="comma-separated phase numbers "
+                        "(1-5) for a short check; the default runs all and "
+                        "prints the record")
+    args = parser.parse_args(argv)
+    picked = (None if args.phases is None
+              else {int(p) for p in args.phases.split(",")})
     import torch
 
     if not torch.cuda.is_available():
@@ -409,6 +438,8 @@ def main() -> int:
               ("golden", phase_golden),
               ("flagship serving", phase_flagship),
               ("per-call timing", phase_per_call)]
+    if picked is not None:
+        phases = [ph for i, ph in enumerate(phases, 1) if i in picked]
     for name, fn in phases:
         print(f"\n== {name}", flush=True)
         t0 = time.perf_counter()
@@ -422,6 +453,8 @@ def main() -> int:
               flush=True)
     print(f"\nchip_smoke: all phases ok in "
           f"{time.perf_counter() - t_start:.1f} s")
+    if picked is not None:
+        return 0  # a short check: no record, no result line
 
     worst = results["kernel vs plain"]
     launches, _ = results["flagship serving"]
@@ -441,7 +474,8 @@ def main() -> int:
             "bound_by": ("bytes" if acc["by"]["bytes"] >= acc["by"]["ops"]
                          else "operations"),
             "library_ms": acc["library_ms"],
-            "times": "per flagship forward: the sum over its 32 calls, bf16"})
+            "times": "per flagship forward: the sum over its 32 calls, bf16",
+            "per_call": acc["per_call"]})
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {
@@ -451,4 +485,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -6,10 +6,12 @@ Replaces ``npvp_tpu/kernels/temporal_attention.py`` (``_kernel_oproj`` and
 attention window — attends over its own short token series: q (B, Tq, H·D),
 k/v (B, Tk, H·D), an optional (Tq, Tk) fp32 additive bias of 0 or
 ``finfo.min`` shared by all sites, and optionally the output projection wo
-(H·D, C), bo (C,). Per head: fp32 logits ``q_h·k_hᵀ/√hd + bias``, fp32
-softmax, weights cast to the compute dtype, ``ctx_h = w·v_h`` accumulated in
-fp32; then either ``ctx`` (B, Tq, H·D) or ``Σ_h ctx_h·wo_h + bo`` (B, Tq, C)
-accumulated in fp32, stored in the compute dtype (float32 or bfloat16).
+(C, H·D) — ``nn.Linear.weight`` as it stands, the transpose of the JAX
+kernel's (H·D, C) — and bo (C,). Per head: fp32 logits ``q_h·k_hᵀ/√hd +
+bias``, fp32 softmax, weights cast to the compute dtype, ``ctx_h = w·v_h``
+accumulated in fp32; then either ``ctx`` (B, Tq, H·D) or ``Σ_h ctx_h·wo_hᵀ
++ bo`` (B, Tq, C) accumulated in fp32, stored in the compute dtype (float32
+or bfloat16).
 
 On a CPU tensor the wrapper runs the plain twin; on a CUDA tensor it
 launches the kernel (built from ``csrc/temporal_attention.cu`` with ``nvcc``
@@ -26,6 +28,7 @@ import shutil
 import subprocess
 import tempfile
 import time
+import weakref
 from pathlib import Path
 
 import torch
@@ -49,6 +52,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # the kernel keeps a tile of sites whose tokens fit 64 rows
 MAX_TOKENS = 64
+# the bf16 kernel's heads are 64 wide (one 128-byte row) and its fused
+# variant keeps the context of at most 8 heads in shared memory
+HEAD_DIM_BF16, MAX_FUSED_HEADS_BF16 = 64, 8
 
 _lib = None
 BUILD_INFO = {}
@@ -77,7 +83,7 @@ def temporal_attention_plain(q, k, v, bias=None, *, num_heads: int, wo=None,
     ctx = ctx.reshape(B, Tq, HD).to(q.dtype)
     if wo is None:
         return ctx
-    out = ctx.float() @ wo.to(q.dtype).float()
+    out = ctx.float() @ wo.to(q.dtype).float().t()
     if bo is not None:
         out = out + bo.float()
     return out.to(q.dtype)
@@ -127,21 +133,53 @@ def _load():
         fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        smem = lib.temporal_attention_smem_bytes
+        smem.argtypes = [ctypes.c_int] * 6
+        smem.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def smem_bytes(Tq: int, Tk: int, HD: int, num_heads: int, dtype,
+               fuse: bool) -> int:
+    """Dynamic shared memory of one block of the kernel, in bytes."""
+    return _load().temporal_attention_smem_bytes(
+        Tq, Tk, HD, num_heads, 1 if dtype == torch.bfloat16 else 0,
+        int(fuse))
 
 
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+# wo cast to the compute dtype, one entry per weight tensor, kept until the
+# weight changes in place or is freed
+_WO_CAST = {}
+
+
+def wo_operand(wo, dtype):
+    """``wo`` in ``dtype``, contiguous: the tensor itself where it already
+    is, else a copy made once per weight and version and reused, so that a
+    serving forward casts no weight at its calls."""
+    if wo.dtype == dtype and wo.is_contiguous():
+        return wo
+    key = (id(wo), dtype)
+    hit = _WO_CAST.get(key)
+    if hit is not None and hit[0]() is wo and hit[1] == wo._version:
+        return hit[2]
+    cast = wo.detach().to(dtype).contiguous()
+    _WO_CAST[key] = (weakref.ref(wo), wo._version, cast)
+    return cast
+
+
 def temporal_attention(q, k, v, bias=None, *, num_heads: int, wo=None,
                        bo=None):
     """Per-site attention: q (B, Tq, H·D), k/v (B, Tk, H·D) → (B, Tq, H·D),
-    or (B, Tq, C) with the output projection wo (H·D, C), bo (C,) fused in.
-    ``bias`` is an optional (Tq, Tk) additive mask (:func:`allow_to_bias`).
-    Any B; Tq, Tk ≤ 64; for the fused bf16 kernel H·D a multiple of 16 and
-    C of 8 (its tensor-core tiles and 16-byte loads)."""
+    or (B, Tq, C) with the output projection wo (C, H·D) (``nn.Linear``'s
+    weight), bo (C,) fused in. ``bias`` is an optional (Tq, Tk) additive
+    mask (:func:`allow_to_bias`). Any B; Tq, Tk ≤ 64; in bfloat16 heads of
+    64 and, fused, at most 8 heads and C a multiple of 8 (the Hopper
+    kernel's 128-byte rows, its shared memory and its TMA strides)."""
     if q.device.type == "cpu":
         return temporal_attention_plain(q, k, v, bias, num_heads=num_heads,
                                         wo=wo, bo=bo)
@@ -156,9 +194,11 @@ def temporal_attention(q, k, v, bias=None, *, num_heads: int, wo=None,
         raise ValueError(f"unsupported dtype {q.dtype}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError("q, k and v must share one dtype")
+    bf16 = q.dtype == torch.bfloat16
     if (HD % num_heads or max(Tq, Tk) > MAX_TOKENS or B == 0
-            or (wo is not None and q.dtype == torch.bfloat16
-                and (HD % 16 or wo.shape[-1] % 8))):
+            or (bf16 and HD != HEAD_DIM_BF16 * num_heads)
+            or (bf16 and wo is not None
+                and (num_heads > MAX_FUSED_HEADS_BF16 or wo.shape[0] % 8))):
         raise ValueError(f"unsupported shape B={B} Tq={Tq} Tk={Tk} "
                          f"HD={HD} heads={num_heads}")
     dev = q.device
@@ -169,10 +209,11 @@ def temporal_attention(q, k, v, bias=None, *, num_heads: int, wo=None,
         bias = bias.to(device=dev, dtype=torch.float32).contiguous()
     C = HD
     if wo is not None:
-        if wo.dim() != 2 or wo.shape[0] != HD:
-            raise ValueError(f"wo {tuple(wo.shape)} is not ({HD}, C)")
-        C = wo.shape[1]
-        wo = wo.to(device=dev, dtype=q.dtype).contiguous()
+        if wo.dim() != 2 or wo.shape[1] != HD or wo.device != dev:
+            raise ValueError(f"wo {tuple(wo.shape)} on {wo.device} is not "
+                             f"(C, {HD}) on {dev}")
+        C = wo.shape[0]
+        wo = wo_operand(wo, q.dtype)
         bo = (torch.zeros(C, device=dev) if bo is None
               else bo.to(device=dev, dtype=torch.float32).contiguous())
     out = torch.empty((B, Tq, C), dtype=q.dtype, device=dev)

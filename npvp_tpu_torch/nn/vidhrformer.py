@@ -96,7 +96,7 @@ def _attend(qf, kf, vf, mha: MultiHeadAttention, exec_mode: str, dtype,
                    vf.reshape(-1, Tk, HD))
         if ta_kernel.FUSE_OPROJ:
             out = ta_kernel.temporal_attention(
-                q, k, v, bias, num_heads=nh, wo=mha.wo.weight.t(),
+                q, k, v, bias, num_heads=nh, wo=mha.wo.weight,
                 bo=mha.wo.bias)
             return out.reshape(lead + (Tq, -1))
         out = ta_kernel.temporal_attention(q, k, v, bias, num_heads=nh)
