@@ -24,7 +24,16 @@ picks some, for a short check), each printing its own lines:
 5. per call site and variant: kernel, plain twin and library (SDPA, plus
    F.linear when fused) times beside the least time the card could take
    (bytes or FLOP bound), kernel ÷ bound, and whether the kernel beats the
-   library call.
+   library call;
+6. stage-2 training at full width (SMMNIST Unified NPVP-S, bf16, random
+   frozen AE weights from a seed written to a checkpoint): 20 train steps
+   and one validation pass of 20 eval steps through
+   ``npvp_tpu_torch.train.stage2_predictor.train`` with the kernel in the
+   eval step: ms per train and eval step, clips/s, peak memory, kernel
+   launches per step (40 per eval step, none in a train step), finite
+   losses, the eval losses against the plain path (within 2e-2), a
+   checkpoint round trip that gives the same next step, and a profiler
+   breakdown of one train step.
 
 Any failure exits non-zero; without CUDA it exits non-zero at once. The last
 three lines are the kernels' JSON record, the card's name and power limit,
@@ -55,6 +64,16 @@ SITES = [("window", 2560, 16, 16, None, 12),
          ("temporal_enc", 4096, 10, 10, "hide_last", 4),
          ("temporal_dec", 4096, 10, 10, None, 8),
          ("cross", 4096, 10, 10, None, 8)]
+# the stage-2 trainer's eval step at the SMMNIST config (batch 8, max_T 15,
+# one split of 7 observed frames): windows of the EVT-Former's two codings
+# and of the decoder, the EVT-Former's temporal attention with the observed
+# frames' allow matrix (each coding, so 8), the decoder's self-attention
+# over the target frames and its cross-attention over the observed ones
+EVAL_SITES = [("window_T15", 480, 16, 16, None, 16),
+              ("temporal_enc_T15", 512, 15, 15, "obs_encoder", 8),
+              ("temporal_dec_T15", 512, 15, 15, "tgt_self", 8),
+              ("cross_T15", 512, 15, 15, "obs_cross", 8)]
+OBS15 = [1, 0, 1, 1, 0, 0, 1, 0, 1, 0, 0, 1, 0, 1, 0]
 EXTRA = [("ragged", 4099, 10, 10, "hide_last"),
          ("tq_ne_tk", 1000, 10, 7, "random"),
          ("masked_row", 4096, 10, 10, "masked_row")]
@@ -109,8 +128,13 @@ def make_inputs(torch, B, Tq, Tk, mask, dtype, fuse, seed=0):
         from npvp_tpu_torch.kernels.temporal_attention import allow_to_bias
         from npvp_tpu_torch.nn.vidhrformer import encoder_temporal_allow
 
+        obs = torch.tensor(OBS15, dtype=torch.bool, device=dev)
         if mask == "hide_last":
             allow = encoder_temporal_allow(Tq, device=dev)
+        elif mask == "obs_encoder":
+            allow = encoder_temporal_allow(Tq, obs, device=dev)
+        elif mask in ("tgt_self", "obs_cross"):
+            allow = (~obs if mask == "tgt_self" else obs)[None].expand(Tq, Tk)
         else:
             allow = torch.rand((Tq, Tk), generator=g, device=dev) > 0.4
             allow[:, 0] = True
@@ -128,7 +152,8 @@ def make_inputs(torch, B, Tq, Tk, mask, dtype, fuse, seed=0):
 def phase_kernel_vs_plain(torch, ta):
     """Returns the largest bf16 error of each variant."""
     worst = {"oproj": 0.0, "attn": 0.0}
-    cases = [(n, B, Tq, Tk, m) for n, B, Tq, Tk, m, _ in SITES] + EXTRA
+    cases = [(n, B, Tq, Tk, m) for n, B, Tq, Tk, m, _ in SITES + EVAL_SITES
+             ] + EXTRA
     for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
         for variant in ("oproj", "attn"):
             for name, B, Tq, Tk, mask in cases:
@@ -271,8 +296,9 @@ def phase_flagship(torch, ta):
     return launches, serving
 
 
-def profile(torch, fn):
-    """Device time of one forward by kernel category (torch.profiler)."""
+def profile(torch, fn, what="forward"):
+    """Device time of one call of ``fn`` (``what``) by kernel category
+    (torch.profiler)."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as prof
 
@@ -287,8 +313,9 @@ def profile(torch, fn):
     total = 0.0
     for ev in pr.key_averages():
         # kernels only: the aten ops that launch them carry the same time
-        if not str(getattr(ev, "device_type", "")).endswith("CUDA"):
-            continue
+        if (not str(getattr(ev, "device_type", "")).endswith("CUDA")
+                or getattr(ev, "is_user_annotation", False)):
+            continue  # an annotation spans kernels counted on their own
         dev_us = (getattr(ev, "self_device_time_total", None)
                   or getattr(ev, "self_cuda_time_total", 0.0) or 0.0)
         if dev_us <= 0:
@@ -310,7 +337,7 @@ def profile(torch, fn):
     if total <= 0:
         print("profiler: no device time recorded")
         return
-    print(f"profiled forward: wall {wall:.2f} ms (under the profiler), "
+    print(f"profiled {what}: wall {wall:.2f} ms (under the profiler), "
           f"device kernel time {total:.2f} ms, idle share "
           f"{max(0.0, 1 - total / wall):.3f}")
     for cat, ms in sorted(cats.items(), key=lambda kv: -kv[1]):
@@ -318,7 +345,8 @@ def profile(torch, fn):
     print("  top kernels:")
     for name, (ms, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]:
         print(f"    {ms:9.3f} ms {n:5d}x  {name[:90]}")
-    print("profile " + json.dumps({"wall_ms": wall, "device_ms": total,
+    print("profile " + json.dumps({"of": what, "wall_ms": wall,
+                                   "device_ms": total,
                                    "by_category_ms": cats}))
 
 
@@ -336,67 +364,195 @@ def time_call(torch, fn, n=20):
 
 
 def phase_per_call(torch, ta):
-    """Per call site, bf16: kernel, twin and library ms and the bound."""
+    """Per call site, bf16: kernel, twin and library ms and the bound,
+    summed over a flagship forward and over a stage-2 eval step."""
     import torch.nn.functional as F
 
     dtype = torch.bfloat16
-    per_forward = {v: dict(ms=0.0, plain_ms=0.0, library_ms=0.0,
-                           bound_ms=0.0, by={"bytes": 0.0, "ops": 0.0},
-                           per_call=[])
-                   for v in ("oproj", "attn")}
-    for name, B, Tq, Tk, mask, calls in SITES:
-        for variant in ("oproj", "attn"):
-            fuse = variant == "oproj"
-            x = make_inputs(torch, B, Tq, Tk, mask, dtype, fuse)
-            args = (x["q"], x["k"], x["v"], x["bias"])
-            kw = dict(num_heads=NH, wo=x["wo"], bo=x["bo"])
-            hd = HD // NH
-            heads = lambda t: t.view(B, -1, NH, hd).transpose(1, 2)  # noqa
-            allow = None if x["bias"] is None else x["bias"] == 0
+    totals = {}
+    for path, sites in (("forward", SITES), ("eval_step", EVAL_SITES)):
+        totals[path] = {v: dict(ms=0.0, plain_ms=0.0, library_ms=0.0,
+                                bound_ms=0.0, by={"bytes": 0.0, "ops": 0.0},
+                                per_call=[])
+                        for v in ("oproj", "attn")}
+        for name, B, Tq, Tk, mask, calls in sites:
+            for variant in ("oproj", "attn"):
+                acc = totals[path][variant]
+                fuse = variant == "oproj"
+                x = make_inputs(torch, B, Tq, Tk, mask, dtype, fuse)
+                args = (x["q"], x["k"], x["v"], x["bias"])
+                kw = dict(num_heads=NH, wo=x["wo"], bo=x["bo"])
+                hd = HD // NH
+                heads = lambda t: t.view(  # noqa: E731
+                    B, -1, NH, hd).transpose(1, 2)
+                allow = None if x["bias"] is None else x["bias"] == 0
 
-            def library():
-                ctx = F.scaled_dot_product_attention(
-                    heads(x["q"]), heads(x["k"]), heads(x["v"]),
-                    attn_mask=allow).transpose(1, 2).reshape(B, Tq, HD)
-                return (F.linear(ctx, x["wo"], x["bo"].to(dtype)) if fuse
-                        else ctx)
+                def library():
+                    ctx = F.scaled_dot_product_attention(
+                        heads(x["q"]), heads(x["k"]), heads(x["v"]),
+                        attn_mask=allow).transpose(1, 2).reshape(B, Tq, HD)
+                    return (F.linear(ctx, x["wo"], x["bo"].to(dtype))
+                            if fuse else ctx)
 
-            saved = dict(ta.LAUNCHES)
-            k_ms = time_call(torch, lambda: ta.temporal_attention(*args,
-                                                                  **kw))
-            ta.LAUNCHES.update(saved)  # timing launches are not the path's
-            p_ms = time_call(torch, lambda: ta.temporal_attention_plain(
-                *args, **kw), n=5)
-            l_ms = time_call(torch, library)
-            C = HD
-            nbytes = 2 * (B * Tq * HD + 2 * B * Tk * HD + B * Tq * C)
-            flops = 4 * B * Tq * Tk * HD
-            if fuse:
-                nbytes += 2 * HD * C + 4 * C
-                flops += 2 * B * Tq * HD * C
-            if x["bias"] is not None:
-                nbytes += 4 * Tq * Tk
-            t_bytes = nbytes / PEAK_BYTES_S * 1e3
-            t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
-            bound = max(t_bytes, t_ops)
-            print(f"{variant:5s} {name:12s} B={B} T={Tq}x{Tk}: kernel "
-                  f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, library "
-                  f"{l_ms:.4f} ms, bound {bound:.4f} ms (bytes "
-                  f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); "
-                  f"kernel/bound {k_ms / bound:.2f}, kernel/library "
-                  f"{k_ms / l_ms:.3f}, "
-                  f"{'beats' if k_ms < l_ms else 'LOSES TO'} the library; "
-                  f"{calls}/forward")
-            acc = per_forward[variant]
-            acc["per_call"].append(dict(site=name, ms=k_ms, plain_ms=p_ms,
-                                        library_ms=l_ms, bound_ms=bound))
-            acc["ms"] += calls * k_ms
-            acc["plain_ms"] += calls * p_ms
-            acc["library_ms"] += calls * l_ms
-            acc["bound_ms"] += calls * bound
-            acc["by"]["bytes"] += calls * t_bytes
-            acc["by"]["ops"] += calls * t_ops
-    return per_forward
+                saved = dict(ta.LAUNCHES)
+                k_ms = time_call(torch, lambda: ta.temporal_attention(
+                    *args, **kw))
+                ta.LAUNCHES.update(saved)  # timing is not the path's run
+                p_ms = time_call(torch, lambda: ta.temporal_attention_plain(
+                    *args, **kw), n=5)
+                l_ms = time_call(torch, library)
+                C = HD
+                nbytes = 2 * (B * Tq * HD + 2 * B * Tk * HD + B * Tq * C)
+                flops = 4 * B * Tq * Tk * HD
+                if fuse:
+                    nbytes += 2 * HD * C + 4 * C
+                    flops += 2 * B * Tq * HD * C
+                if x["bias"] is not None:
+                    nbytes += 4 * Tq * Tk
+                t_bytes = nbytes / PEAK_BYTES_S * 1e3
+                t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
+                bound = max(t_bytes, t_ops)
+                print(f"{variant:5s} {name:16s} B={B} T={Tq}x{Tk}: kernel "
+                      f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, library "
+                      f"{l_ms:.4f} ms, bound {bound:.4f} ms (bytes "
+                      f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); "
+                      f"kernel/bound {k_ms / bound:.2f}, kernel/library "
+                      f"{k_ms / l_ms:.3f}, "
+                      f"{'beats' if k_ms < l_ms else 'LOSES TO'} the "
+                      f"library; {calls}/{path}")
+                acc["per_call"].append(dict(site=name, ms=k_ms,
+                                            plain_ms=p_ms, library_ms=l_ms,
+                                            bound_ms=bound))
+                acc["ms"] += calls * k_ms
+                acc["plain_ms"] += calls * p_ms
+                acc["library_ms"] += calls * l_ms
+                acc["bound_ms"] += calls * bound
+                acc["by"]["bytes"] += calls * t_bytes
+                acc["by"]["ops"] += calls * t_ops
+    return totals
+
+
+def phase_training(torch, ta):
+    """Stage-2 training of SMMNIST Unified NPVP-S at full width."""
+    import tempfile
+    import types
+
+    import numpy as np
+
+    from npvp_tpu_torch.core.checkpoint import CheckpointManager
+    from npvp_tpu_torch.core.config import load_config
+    from npvp_tpu_torch.data.loader import DataModule
+    from npvp_tpu_torch.models.predictor import build_predictor
+    from npvp_tpu_torch.nn.layers import Rng
+    from npvp_tpu_torch.train import stage2_predictor as s2
+
+    steps_wanted = 20
+    yaml = HERE / "npvp_tpu" / "configs" / \
+        "config_SMMNIST_Unified_NPVP-S.yaml"
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = load_config(yaml, [
+            "Predictor.exec_mode=pallas", "Predictor.epochs=1",
+            f"Predictor.ckpt_save_dir={tmp}/ckpt",
+            f"Predictor.tensorboard_save_dir={tmp}/log",
+            f"Dataset.dev_set_size={8 * steps_wanted}"])
+        p, d = cfg.Predictor, cfg.Dataset
+        cfg.Predictor.resume_AE_ckpt = str(s2.write_random_ae(cfg, tmp))
+        print(f"SMMNIST Unified NPVP-S (embed {p.embed_dim}, "
+              f"{p.transformer_layers} + {p.evt_former_num_layers} layers, "
+              f"max_T {p.max_T}), batch {d.batch_size}, "
+              f"{cfg.Env.compute_dtype}, exec_mode {p.exec_mode}, "
+              f"dropout {p.dropout}, drop_path {p.drop_path}")
+        record = {"train": [], "eval": []}
+        clock = [0.0, 0]
+
+        def on_step(kind, index, metrics):
+            torch.cuda.synchronize()
+            now, launched = time.perf_counter(), sum(ta.LAUNCHES.values())
+            loss = float(metrics["loss" if kind == "train" else "loss_val"])
+            record[kind].append(dict(ms=(now - clock[0]) * 1e3, loss=loss,
+                                     launches=launched - clock[1]))
+            check(np.isfinite(loss), f"{kind} step {index}: loss {loss}")
+            clock[:] = [time.perf_counter(), sum(ta.LAUNCHES.values())]
+
+        for key in ta.LAUNCHES:
+            ta.LAUNCHES[key] = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = clock[0] = time.perf_counter()
+        state = s2.train(cfg, on_step=on_step)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(ta.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        tr, ev = record["train"], record["eval"]
+        check(len(tr) == steps_wanted and state.step == steps_wanted,
+              f"{len(tr)} train steps, state.step {state.step}")
+        check(len(ev) >= 1, "no eval step ran")
+        check(all(r["launches"] == 0 for r in tr),
+              "a train step launched the kernel")
+        check(all(r["launches"] == 40 for r in ev),
+              f"eval steps launched {[r['launches'] for r in ev]}, not 40")
+        check(launches["oproj"] == 40 * len(ev) and launches["attn"] == 0,
+              f"launches {launches}")
+        train_ms = statistics.median(r["ms"] for r in tr[3:])
+        eval_ms = statistics.median(r["ms"] for r in ev[1:] or ev)
+        print(f"train(): {len(tr)} train steps + {len(ev)} eval steps in "
+              f"{wall:.1f} s (set-up included); train step "
+              f"{train_ms:.2f} ms median after 3 warm-up steps "
+              f"({d.batch_size / (train_ms / 1e3):.1f} clips/s), first "
+              f"three {[round(r['ms'], 1) for r in tr[:3]]} ms; eval step "
+              f"{eval_ms:.2f} ms median; peak memory {peak:.2f} GiB")
+        print(f"kernel launches: {[r['launches'] for r in tr]} per train "
+              f"step, {[r['launches'] for r in ev]} per eval step; "
+              f"{launches}")
+        print(f"losses: train {[round(r['loss'], 4) for r in tr]}, eval "
+              f"{[round(r['loss'], 4) for r in ev]}")
+
+        # the eval step with the kernel against the plain path, one state
+        saved = dict(ta.LAUNCHES)
+        dev = next(state.model.parameters()).device
+        dtype = s2.compute_dtype(cfg)
+        ae = s2.load_frozen_ae(cfg, dtype, dev)
+        steps = s2.make_steps(cfg, ae, "rand_context", dev)
+        dm = DataModule(cfg)
+        batch = steps.place(next(iter(dm.val_loader("rand_context"))))
+        plain = build_predictor(cfg, dtype, exec_mode="xla").to(dev)
+        plain.load_state_dict(state.model.state_dict())
+        got = steps.eval(state, batch, Rng(123))
+        want = steps.eval(types.SimpleNamespace(model=plain), batch,
+                          Rng(123))
+        diffs = {k: abs(float(got[k]) - float(want[k])) for k in want}
+        print("eval losses, kernel vs plain: " + ", ".join(
+            f"{k} {float(got[k]):.5f} vs {float(want[k]):.5f}"
+            for k in want) + f"; max|d| {max(diffs.values()):.2e} (tol 2e-2)")
+        check(max(diffs.values()) <= 2e-2, "kernel eval departs from plain")
+
+        # checkpoint round trip: the next step from a restored state
+        train_batch = steps.place(next(iter(dm.train_loader("rand_context"))))
+        mngr = CheckpointManager(Path(tmp) / "roundtrip", max_to_keep=1)
+        mngr.save(state.step, state)
+        next_loss = float(steps.train(state, train_batch, Rng(7))["loss"])
+        fresh = s2.init_predictor_state(
+            cfg, build_predictor(cfg, dtype).to(dev), steps_wanted)
+        mngr.restore(fresh)
+        again = float(steps.train(fresh, train_batch, Rng(7))["loss"])
+        print(f"checkpoint round trip: next-step loss {next_loss!r} vs "
+              f"{again!r} after restore "
+              f"({'bit-identical' if next_loss == again else 'DIFFERENT'})")
+        check(abs(next_loss - again) <= 1e-6 * abs(next_loss),
+              "the restored state takes a different next step")
+        profile(torch, lambda: steps.train(fresh, train_batch, Rng(8)),
+                "train step")
+        profile(torch, lambda: steps.eval(fresh, batch, Rng(9)),
+                "eval step")
+        ta.LAUNCHES.update(saved)  # comparison launches are not the path's
+    result = {"train_ms": train_ms, "eval_ms": eval_ms,
+              "clips_per_s": d.batch_size / (train_ms / 1e3),
+              "peak_gib": peak, "launches": launches,
+              "eval_launches_per_step": {
+                  k: v // len(ev) for k, v in launches.items()},
+              "train_steps": len(tr), "eval_steps": len(ev)}
+    print("training " + json.dumps(result))
+    return result
 
 
 def main(argv) -> int:
@@ -404,7 +560,7 @@ def main(argv) -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases", help="comma-separated phase numbers "
-                        "(1-5) for a short check; the default runs all and "
+                        "(1-6) for a short check; the default runs all and "
                         "prints the record")
     args = parser.parse_args(argv)
     picked = (None if args.phases is None
@@ -437,7 +593,8 @@ def main(argv) -> int:
               ("kernel vs plain", phase_kernel_vs_plain),
               ("golden", phase_golden),
               ("flagship serving", phase_flagship),
-              ("per-call timing", phase_per_call)]
+              ("per-call timing", phase_per_call),
+              ("stage-2 training", phase_training)]
     if picked is not None:
         phases = [ph for i, ph in enumerate(phases, 1) if i in picked]
     for name, fn in phases:
@@ -458,7 +615,9 @@ def main(argv) -> int:
 
     worst = results["kernel vs plain"]
     launches, _ = results["flagship serving"]
-    per_forward = results["per-call timing"]
+    per_forward = results["per-call timing"]["forward"]
+    per_eval = results["per-call timing"]["eval_step"]
+    training = results["stage-2 training"]
     replaces = {"oproj": "npvp_tpu/kernels/temporal_attention.py:136",
                 "attn": "npvp_tpu/kernels/temporal_attention.py:127"}
     run_of = {"oproj": "kernel_oproj", "attn": "kernel_attn"}
@@ -474,6 +633,12 @@ def main(argv) -> int:
             "bound_by": ("bytes" if acc["by"]["bytes"] >= acc["by"]["ops"]
                          else "operations"),
             "library_ms": acc["library_ms"],
+            "eval_step": {
+                "launches": training["eval_launches_per_step"][v],
+                **{k: per_eval[v][k] for k in ("ms", "plain_ms",
+                                               "library_ms", "bound_ms")},
+                "times": "per stage-2 eval step (SMMNIST, batch 8, T = 15):"
+                         " the sum over its 40 calls, bf16"},
             "times": "per flagship forward: the sum over its 32 calls, bf16",
             "per_call": acc["per_call"]})
     print(json.dumps({"kernels": kernels}))

@@ -15,7 +15,10 @@ or bfloat16).
 
 On a CPU tensor the wrapper runs the plain twin; on a CUDA tensor it
 launches the kernel (built from ``csrc/temporal_attention.cu`` with ``nvcc``
-at first use into ``kernels/_build/``) or raises. Nothing falls back.
+at first use into ``kernels/_build/``) or raises. Nothing falls back. The
+kernel has no backward, so the wrapper refuses, on either device, inputs
+that autograd would differentiate: the call sites reach it in eval mode
+only, as the JAX package reaches its kernel only when ``deterministic``.
 """
 
 from __future__ import annotations
@@ -179,7 +182,15 @@ def temporal_attention(q, k, v, bias=None, *, num_heads: int, wo=None,
     weight), bo (C,) fused in. ``bias`` is an optional (Tq, Tk) additive
     mask (:func:`allow_to_bias`). Any B; Tq, Tk ≤ 64; in bfloat16 heads of
     64 and, fused, at most 8 heads and C a multiple of 8 (the Hopper
-    kernel's 128-byte rows, its shared memory and its TMA strides)."""
+    kernel's 128-byte rows, its shared memory and its TMA strides).
+    Raises under autograd: call it under ``torch.no_grad()`` or with inputs
+    that need no gradient."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (q, k, v, bias, wo,
+                                                         bo)):
+        raise RuntimeError(
+            "temporal_attention has no backward: its inputs require grad "
+            "(run it under torch.no_grad(), or train on the plain path)")
     if q.device.type == "cpu":
         return temporal_attention_plain(q, k, v, bias, num_heads=num_heads,
                                         wo=wo, bo=bo)

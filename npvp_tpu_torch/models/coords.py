@@ -63,3 +63,12 @@ def task_time_lists(task: str, num_past: int, num_future: int,
         to = np.concatenate([idx[:context_p], idx[total - context_f:]])
         return to, idx[context_p: total - context_f]
     raise ValueError(f"unknown task {task!r}; expected VFP | VPE | VFI")
+
+
+def full_coordinate_volume(max_T: int, max_H: int, max_W: int,
+                           device="cpu") -> torch.Tensor:
+    """(max_T·max_H·max_W, 3) grid of every integer coordinate: the
+    observed and target grids of the masked (rand-context) mode."""
+    h, w = spatial_index_lists(max_H, max_W)
+    return coordinate_grid(np.arange(max_T, dtype=np.float32), h, w, max_T,
+                           max_H, max_W, device=device)

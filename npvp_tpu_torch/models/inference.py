@@ -64,9 +64,7 @@ class VideoPredictor:
         """From flax variable trees (nested dicts of numpy arrays)."""
         ae, predictor = cls._build(cfg, dtype, exec_mode)
         load_flax(ae, ae_vars)
-        # NPVP-S keeps its training-only posterior out of the serving module
-        load_flax(predictor, pred_vars, ignore=("evt_posterior/",)
-                  if cfg.Predictor.stochastic else ())
+        load_flax(predictor, pred_vars)
         return cls(cfg, ae, predictor, device)
 
     @classmethod

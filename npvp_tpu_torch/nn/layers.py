@@ -9,12 +9,15 @@ modules do; normalisation statistics are taken in float32.
 
 Submodule and parameter names follow the flax modules, so that
 ``npvp_tpu_torch.tools.weights`` can map a flax variable tree onto them.
-Only the serving (eval) behaviour is ported: BatchNorm reads its running
-statistics, and dropout and stochastic depth are absent.
+A module's train/eval mode stands for flax's ``train``/``deterministic``
+argument: in training mode BatchNorm normalises with the batch's statistics
+and updates its running ones, and dropout and DropPath draw their masks
+from an explicit :class:`Rng`.
 """
 
 from __future__ import annotations
 
+import hashlib
 import math
 from typing import Optional
 
@@ -23,13 +26,63 @@ import torch.nn.functional as F
 from torch import nn
 
 
-def scaled_dot_product_attention(q, k, v, mask=None):
+class Rng:
+    """A random stream named by a 63-bit seed. Children are derived by name
+    (``fold``), as ``jax.random.fold_in`` derives keys, so a draw depends
+    only on where it is made, never on how many draws came before it: a
+    block that ``torch.utils.checkpoint`` runs again draws the same masks.
+    Every draw takes a ``torch.Generator`` seeded from the stream."""
+
+    def __init__(self, seed: int):
+        self.seed = int(seed) & (2 ** 63 - 1)
+
+    def fold(self, tag) -> "Rng":
+        digest = hashlib.blake2b(f"{self.seed}/{tag}".encode(),
+                                 digest_size=8).digest()
+        return Rng(int.from_bytes(digest, "little"))
+
+    def generator(self, device) -> torch.Generator:
+        return torch.Generator(device=device).manual_seed(self.seed)
+
+    def normal(self, shape, device) -> torch.Tensor:
+        return torch.randn(shape, generator=self.generator(device),
+                           device=device)
+
+    def bernoulli(self, shape, p: float, device) -> torch.Tensor:
+        """float32 mask of ones with probability ``p``, else zeros."""
+        return torch.empty(shape, device=device).bernoulli_(
+            p, generator=self.generator(device))
+
+
+def fold(rng: Optional[Rng], tag) -> Optional[Rng]:
+    """``rng.fold(tag)``, or None without a stream."""
+    return None if rng is None else rng.fold(tag)
+
+
+def _need(rng: Optional[Rng], what: str) -> Rng:
+    if rng is None:
+        raise ValueError(f"{what} in training mode needs an Rng")
+    return rng
+
+
+def dropout(x, rate: float, training: bool, rng: Optional[Rng]):
+    """Elementwise dropout, ``x / keep_prob`` where kept (flax
+    ``nn.Dropout``); the identity at rate 0 or in eval mode."""
+    if not training or rate == 0.0:
+        return x
+    keep = _need(rng, "dropout").bernoulli(x.shape, 1.0 - rate, x.device)
+    return x * (keep / (1.0 - rate)).to(x.dtype)
+
+
+def scaled_dot_product_attention(q, k, v, mask=None, dropout_rate=0.0,
+                                 rng: Optional[Rng] = None):
     """Attention over (..., L, num_heads, head_dim) tensors.
 
     ``mask`` is boolean with True = allowed, broadcastable to
     (..., num_heads, Lq, Lk); masked logits take ``finfo(float32).min`` (not
     -inf, so a fully masked row stays finite). Logits and softmax are fp32;
-    the weights are cast to the compute dtype before the weighted sum."""
+    the weights are cast to the compute dtype before the weighted sum. With
+    ``dropout_rate`` > 0 the weights are dropped with a mask from ``rng``."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     logits = torch.einsum("...qhd,...khd->...hqk", q.float(), k.float())
     logits = logits * scale
@@ -37,6 +90,7 @@ def scaled_dot_product_attention(q, k, v, mask=None):
         logits = torch.where(mask, logits,
                              torch.finfo(torch.float32).min)
     weights = torch.softmax(logits, dim=-1).to(q.dtype)
+    weights = dropout(weights, dropout_rate, dropout_rate > 0.0, rng)
     return torch.einsum("...hqk,...khd->...qhd", weights, v)
 
 
@@ -57,24 +111,32 @@ def conv_nhwc(x, conv: nn.Conv2d, dtype):
 class MultiHeadAttention(nn.Module):
     """q/k/v/output projections plus attention (port of the flax
     ``MultiHeadAttention``; its DenseGeneral kernels become ``nn.Linear``
-    weights of shape (H·D, C) and (C, H·D))."""
+    weights of shape (H·D, C) and (C, H·D)). In training mode the attention
+    weights are dropped at rate ``dropout``."""
 
-    def __init__(self, embed_dim: int, num_heads: int,
+    def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0,
                  dtype=torch.float32):
         super().__init__()
-        self.num_heads, self.dtype = num_heads, dtype
+        self.num_heads, self.dropout, self.dtype = num_heads, dropout, dtype
         self.wq = nn.Linear(embed_dim, embed_dim)
         self.wk = nn.Linear(embed_dim, embed_dim)
         self.wv = nn.Linear(embed_dim, embed_dim)
         self.wo = nn.Linear(embed_dim, embed_dim)
 
-    def forward(self, q_in, k_in, v_in, mask=None):
+    @property
+    def dropout_rate(self) -> float:
+        """The attention-weight dropout rate in force: 0 in eval mode."""
+        return self.dropout if self.training else 0.0
+
+    def forward(self, q_in, k_in, v_in, mask=None,
+                rng: Optional[Rng] = None):
         H = self.num_heads
         heads = lambda t: t.reshape(t.shape[:-1] + (H, -1))  # noqa: E731
         q = heads(linear(q_in, self.wq, self.dtype))
         k = heads(linear(k_in, self.wk, self.dtype))
         v = heads(linear(v_in, self.wv, self.dtype))
-        out = scaled_dot_product_attention(q, k, v, mask=mask)
+        out = scaled_dot_product_attention(q, k, v, mask, self.dropout_rate,
+                                           rng)
         return linear(out.flatten(-2), self.wo, self.dtype)
 
 
@@ -89,22 +151,34 @@ def fp32_moments(x, dims, keepdim: bool = True):
 
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm over the trailing channel axis: running
-    statistics folded into a per-channel affine ``x·a + b`` applied in the
-    compute dtype."""
+    """BatchNorm over the trailing channel axis, applied as a per-channel
+    affine ``x·a + b`` in the compute dtype. Eval mode reads the running
+    statistics. Training mode takes the batch's fp32 mean and *biased*
+    variance (:func:`fp32_moments`) and moves the running statistics toward
+    them with flax's rule, ``r = momentum·r + (1 − momentum)·s``, the biased
+    variance included (``torch.nn.BatchNorm`` stores the unbiased one)."""
 
     def __init__(self, channels: int, eps: float = 1e-5,
-                 dtype=torch.float32):
+                 momentum: float = 0.9, dtype=torch.float32):
         super().__init__()
-        self.eps, self.dtype = eps, dtype
+        self.eps, self.momentum, self.dtype = eps, momentum, dtype
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
 
     def forward(self, x):
-        a = self.weight * torch.rsqrt(self.running_var + self.eps)
-        b = self.bias - self.running_mean * a
+        if self.training:
+            mean, var = fp32_moments(x, tuple(range(x.dim() - 1)),
+                                     keepdim=False)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(m).add_((1.0 - m) * mean)
+                self.running_var.mul_(m).add_((1.0 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        a = self.weight * torch.rsqrt(var + self.eps)
+        b = self.bias - mean * a
         return x.to(self.dtype) * a.to(self.dtype) + b.to(self.dtype)
 
 
@@ -146,6 +220,24 @@ class LayerNormHWC(nn.Module):
         return x * a + b
 
 
+class DropPath(nn.Module):
+    """Stochastic depth per sample: each leading-axis sample is kept with
+    probability 1 − rate and scaled by 1 / (1 − rate), or zeroed. The
+    identity at rate 0 or in eval mode."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x, rng: Optional[Rng] = None):
+        if not self.training or self.rate == 0.0:
+            return x
+        keep_prob = 1.0 - self.rate
+        shape = (x.shape[0],) + (1,) * (x.dim() - 1)
+        keep = _need(rng, "DropPath").bernoulli(shape, keep_prob, x.device)
+        return x * (keep / keep_prob).to(x.dtype)
+
+
 def reflect_pad_2d(x, pad: int):
     """Reflection-pad the (H, W) axes of an (..., H, W, C) tensor."""
     lead = x.shape[:-3]
@@ -157,7 +249,9 @@ def reflect_pad_2d(x, pad: int):
 class ConvBNAct(nn.Module):
     """Conv → BatchNorm → activation on (N, H, W, C). ``"TORCH_SAME"``
     pads k//2 on both sides whatever the stride (torch ``Conv2d(padding=
-    k//2)``); ``"VALID"`` pads nothing."""
+    k//2)``); ``"VALID"`` pads nothing. The module's mode is flax's
+    ``train`` flag: in training mode the BatchNorm uses and updates batch
+    statistics."""
 
     def __init__(self, in_features: int, features: int, kernel_size=3,
                  stride: int = 1, padding: str = "TORCH_SAME",

@@ -4,7 +4,9 @@ the latent event encoder.
 
 Flax draws the stochastic latent's noise from its ``"latent"`` rng, which
 torch cannot reproduce; here the caller passes the noise ``eps`` in (or
-none, which takes the mean, as ``sample=False`` does in flax).
+none, which takes the mean, as ``sample=False`` does in flax). In training
+mode the EventEncoder's BatchNorms use and update batch statistics, as flax
+does with ``train=True``.
 """
 
 from __future__ import annotations

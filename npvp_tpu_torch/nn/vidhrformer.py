@@ -1,5 +1,5 @@
 """VidHRFormer encoder and non-autoregressive decoder (port of
-``npvp_tpu/nn/vidhrformer.py``, serving path).
+``npvp_tpu/nn/vidhrformer.py``).
 
 Two equal paths over one parameter set, as in the JAX package:
 
@@ -10,22 +10,31 @@ Two equal paths over one parameter set, as in the JAX package:
   a·(x·W) + b·(1ᵀW) + β·W`` with per-frame scalars (a, b), so q, k and v
   come from one wide matmul of the raw input.
 
-With ``exec_mode="pallas"`` the affine path hands its (sites, T, H·D) q/k/v
-to the hand-written kernel (``npvp_tpu_torch.kernels.temporal_attention``),
-output projection included; otherwise it takes the plain attention.
+The blocks take the affine path in eval mode only, as JAX takes it only when
+``deterministic``: training runs the generic path, with dropout and DropPath
+drawn from an explicit :class:`~npvp_tpu_torch.nn.layers.Rng` and, with
+``remat``, each block recomputed in the backward pass
+(``torch.utils.checkpoint``). With ``exec_mode="pallas"`` the affine path of
+a module in eval mode hands its (sites, T, H·D) q/k/v to the hand-written
+kernel (``npvp_tpu_torch.kernels.temporal_attention``), output projection
+included; otherwise it takes the plain attention. The kernel has no
+backward, so nothing that is trained reaches it.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from npvp_tpu_torch.kernels import temporal_attention as ta_kernel
-from npvp_tpu_torch.nn.layers import (LayerNormHWC, MultiHeadAttention,
-                                      TokenLayerNorm, fp32_moments, linear,
+from npvp_tpu_torch.nn.layers import (DropPath, LayerNormHWC,
+                                      MultiHeadAttention, Rng,
+                                      TokenLayerNorm, dropout, fold,
+                                      fp32_moments, linear,
                                       scaled_dot_product_attention)
 from npvp_tpu_torch.nn.neural_process import pos_feat_fuse
 
@@ -83,14 +92,16 @@ def _mm(x, w, dtype):
 
 
 def _attend(qf, kf, vf, mha: MultiHeadAttention, exec_mode: str, dtype,
-            allow=None):
+            allow=None, rng: Optional[Rng] = None):
     """Per-site attention plus output projection of (..., Tq, HD) q and
     (..., Tk, HD) k/v whose leading axes are sites; ``allow`` is a boolean
-    (Tq, Tk) mask. Returns (..., Tq, C)."""
+    (Tq, Tk) mask. Returns (..., Tq, C). The kernel serves ``exec_mode ==
+    "pallas"`` in eval mode only; training takes the plain attention, with
+    its weight dropout."""
     lead, Tq, HD = qf.shape[:-2], qf.shape[-2], qf.shape[-1]
     Tk = kf.shape[-2]
     nh = mha.num_heads
-    if exec_mode == "pallas":
+    if exec_mode == "pallas" and not mha.training:
         bias = None if allow is None else ta_kernel.allow_to_bias(allow)
         q, k, v = (qf.reshape(-1, Tq, HD), kf.reshape(-1, Tk, HD),
                    vf.reshape(-1, Tk, HD))
@@ -103,7 +114,7 @@ def _attend(qf, kf, vf, mha: MultiHeadAttention, exec_mode: str, dtype,
         return linear(out.reshape(lead + (Tq, HD)), mha.wo, dtype)
     heads = lambda t: t.reshape(t.shape[:-1] + (nh, -1))  # noqa: E731
     out = scaled_dot_product_attention(heads(qf), heads(kf), heads(vf),
-                                       mask=allow)
+                                       allow, mha.dropout_rate, rng)
     return linear(out.flatten(-2), mha.wo, dtype)
 
 
@@ -113,19 +124,21 @@ class SpatialWindowAttention(nn.Module):
     tensor; the affine path (``pos_beta`` given) takes the raw input."""
 
     def __init__(self, embed_dim: int, num_heads: int, window_size: int = 4,
-                 exec_mode: str = "xla", dtype=torch.float32):
+                 dropout: float = 0.0, exec_mode: str = "xla",
+                 dtype=torch.float32):
         super().__init__()
         self.window_size, self.exec_mode, self.dtype = (window_size,
                                                         exec_mode, dtype)
-        self.attn = MultiHeadAttention(embed_dim, num_heads, dtype=dtype)
+        self.attn = MultiHeadAttention(embed_dim, num_heads, dropout, dtype)
 
-    def forward(self, x, value, pos_beta=None, evt=None):
+    def forward(self, x, value, pos_beta=None, evt=None,
+                rng: Optional[Rng] = None):
         N, T, H, W, C = x.shape
         ws, dt = self.window_size, self.dtype
         if pos_beta is None:
             xw = window_partition(x.reshape(N * T, H, W, C), ws)
             vw = window_partition(value.reshape(N * T, H, W, C), ws)
-            out = self.attn(xw, xw, vw)
+            out = self.attn(xw, xw, vw, rng=rng)
             return window_reverse(out, ws, N * T, H, W).reshape(N, T, H, W, C)
 
         # affine path: x is the raw normalised input (== value); windows are
@@ -163,7 +176,7 @@ class SpatialWindowAttention(nn.Module):
         qf = a4 * pq + (b4 * ones_q + pos_q).to(dt)
         kf = a4 * pk + (b4 * ones_k + pos_k).to(dt)
         vf = pv + bv.to(dt)
-        out = _attend(qf, kf, vf, self.attn, self.exec_mode, dt)
+        out = _attend(qf, kf, vf, self.attn, self.exec_mode, dt, rng=rng)
         out = window_reverse(out.reshape(N * T * nW, ws * ws, C), ws, N * T,
                              H, W)
         return out.reshape(N, T, H, W, C)
@@ -177,15 +190,15 @@ def _gelu_for(dtype):
 
 class MlpDWBN(nn.Module):
     """Conv feed-forward: 1×1 → depthwise 3×3 → 1×1 with GELU and a
-    per-sample (H, W, C) LayerNorm after each stage. The 1×1 convs are
-    ``nn.Linear`` over the channel axis."""
+    per-sample (H, W, C) LayerNorm after each stage, dropout after the last
+    two. The 1×1 convs are ``nn.Linear`` over the channel axis."""
 
     def __init__(self, in_features: int, hidden_features: int,
                  out_features: int, spatial: Tuple[int, int],
-                 dtype=torch.float32):
+                 dropout: float = 0.0, dtype=torch.float32):
         super().__init__()
         H, W = spatial
-        self.dtype = dtype
+        self.dropout, self.dtype = dropout, dtype
         self.fc1 = nn.Linear(in_features, hidden_features)
         self.norm1 = LayerNormHWC((H, W, hidden_features))
         self.dw3x3 = nn.Conv2d(hidden_features, hidden_features, 3,
@@ -194,16 +207,18 @@ class MlpDWBN(nn.Module):
         self.fc2 = nn.Linear(hidden_features, out_features)
         self.norm3 = LayerNormHWC((H, W, out_features))
 
-    def forward(self, x):
+    def forward(self, x, rng: Optional[Rng] = None):
         N, T, H, W, C = x.shape
         act, dt = _gelu_for(self.dtype), self.dtype
+        drop = lambda y, tag: dropout(y, self.dropout,  # noqa: E731
+                                      self.training, fold(rng, tag))
         y = x.reshape(N * T, H, W, C)
         y = act(self.norm1(linear(y, self.fc1, dt)))
         dw = self.dw3x3
         y = F.conv2d(y.permute(0, 3, 1, 2), dw.weight.to(dt),
                      dw.bias.to(dt), 1, 1, 1, dw.groups).permute(0, 2, 3, 1)
-        y = act(self.norm2(y))
-        y = act(self.norm3(linear(y, self.fc2, dt)))
+        y = drop(act(self.norm2(y)), "drop2")
+        y = drop(act(self.norm3(linear(y, self.fc2, dt))), "drop3")
         return y.reshape(N, T, H, W, -1)
 
 
@@ -232,19 +247,21 @@ class TemporalAttention(nn.Module):
     and k/v from the memory, or takes the memory projection ``cross_pkv``
     that the decoder stack hoisted."""
 
-    def __init__(self, embed_dim: int, num_heads: int, exec_mode: str = "xla",
-                 dtype=torch.float32):
+    def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0,
+                 exec_mode: str = "xla", dtype=torch.float32):
         super().__init__()
         self.exec_mode, self.dtype = exec_mode, dtype
-        self.attn = MultiHeadAttention(embed_dim, num_heads, dtype=dtype)
+        self.attn = MultiHeadAttention(embed_dim, num_heads, dropout, dtype)
 
     def forward(self, q_in, k_in, v_in, allow=None, pos_beta_q=None,
-                pos_beta_kv=None, evt_q=None, cross_pkv=None):
+                pos_beta_kv=None, evt_q=None, cross_pkv=None,
+                rng: Optional[Rng] = None):
         to_bt = lambda t: t.permute(0, 2, 3, 1, 4)  # noqa: E731
         dt = self.dtype
         if pos_beta_q is None:
             mask = None if allow is None else allow[None, None, None, None]
-            out = self.attn(to_bt(q_in), to_bt(k_in), to_bt(v_in), mask=mask)
+            out = self.attn(to_bt(q_in), to_bt(k_in), to_bt(v_in), mask=mask,
+                            rng=rng)
             return out.permute(0, 3, 1, 2, 4)
 
         w3, (wq_f, wk_f), (ones_q, ones_k), (bq, bk, bv) = _qkv_weights(
@@ -289,17 +306,19 @@ class TemporalAttention(nn.Module):
                   + (to_bt(bk_s) * ones_k
                      + posmm(pos_beta_kv, wk_f, bk, To)).to(dt))
             vf = Pv + bv.to(dt)
-        out = _attend(qf, kf, vf, self.attn, self.exec_mode, dt, allow)
+        out = _attend(qf, kf, vf, self.attn, self.exec_mode, dt, allow, rng)
         return out.permute(0, 3, 1, 2, 4)
 
 
 class VidHRFormerBlockEnc(nn.Module):
     """Encoder block: window MHSA → conv FFN → masked temporal MHSA → linear
-    FFN, pre-LN."""
+    FFN, pre-LN, with DropPath on the first two branches and dropout on the
+    others. Eval mode takes the affine-fused path where it applies."""
 
     n_norms = 4
 
     def __init__(self, embed_dim: int, num_heads: int, window_size: int = 4,
+                 dropout: float = 0.0, drop_path: float = 0.0,
                  ffn_hidden_ratio: int = 4, dim_feedforward: int = 1024,
                  norm_type: str = "layer", affine_posfuse: bool = False,
                  exec_mode: str = "xla", spatial: Tuple[int, int] = (8, 8),
@@ -307,44 +326,79 @@ class VidHRFormerBlockEnc(nn.Module):
         super().__init__()
         self.norm_type, self.affine, self.dtype = (norm_type, affine_posfuse,
                                                    dtype)
+        self.dropout = dropout
         for i in range(1, self.n_norms + 1):
             # torch nn.LayerNorm's eps, as at every reference call site
             self.add_module(f"norm{i}", TokenLayerNorm(embed_dim, 1e-5,
                                                        dtype=dtype))
+        self.drop_path = DropPath(drop_path)
         self.slmhsa = SpatialWindowAttention(embed_dim, num_heads,
-                                             window_size, exec_mode, dtype)
+                                             window_size, dropout, exec_mode,
+                                             dtype)
         self.spatial_ffn = MlpDWBN(embed_dim, ffn_hidden_ratio * embed_dim,
-                                   embed_dim, spatial, dtype)
-        self.temporal_mhsa = TemporalAttention(embed_dim, num_heads,
+                                   embed_dim, spatial, dropout, dtype)
+        self.temporal_mhsa = TemporalAttention(embed_dim, num_heads, dropout,
                                                exec_mode, dtype)
         self.linear1 = nn.Linear(embed_dim, dim_feedforward)
         self.linear2 = nn.Linear(dim_feedforward, embed_dim)
 
-    def _linear_ffn(self, x):
-        y = _gelu_for(self.dtype)(linear(x, self.linear1, self.dtype))
-        return linear(y, self.linear2, self.dtype)
+    @property
+    def fused(self) -> bool:
+        """The affine-fused path: eval mode only (JAX: ``affine_posfuse and
+        deterministic``)."""
+        return self.affine and not self.training
 
-    def forward(self, x, pos_beta, pos_gamma, temporal_allow=None):
+    def _drop(self, x, rng, tag):
+        return dropout(x, self.dropout, self.training, fold(rng, tag))
+
+    def _linear_ffn(self, x, rng):
+        y = _gelu_for(self.dtype)(linear(x, self.linear1, self.dtype))
+        y = linear(self._drop(y, rng, "drop_ffn1"), self.linear2, self.dtype)
+        return self._drop(y, rng, "drop_ffn2")
+
+    def forward(self, x, pos_beta, pos_gamma, temporal_allow=None,
+                rng: Optional[Rng] = None):
         x1 = self.norm1(x)
-        if self.affine:
+        if self.fused:
             attn = self.slmhsa(x1, x1, pos_beta=pos_beta)
         else:
             attn = self.slmhsa(pos_feat_fuse(x1, pos_beta, pos_gamma,
-                                             self.norm_type), x1)
-        x = x + attn
-        x = x + self.spatial_ffn(self.norm2(x))
+                                             self.norm_type), x1,
+                               rng=fold(rng, "slmhsa"))
+        x = x + self.drop_path(attn, fold(rng, "drop_path1"))
+        x = x + self.drop_path(self.spatial_ffn(self.norm2(x),
+                                                fold(rng, "spatial_ffn")),
+                               fold(rng, "drop_path2"))
         x1 = self.norm3(x)
         if temporal_allow is None:
             temporal_allow = encoder_temporal_allow(x.shape[1],
                                                     device=x.device)
-        if self.affine:
+        if self.fused:
             tattn = self.temporal_mhsa(x1, x1, x1, temporal_allow,
                                        pos_beta_q=pos_beta)
         else:
             temp = pos_feat_fuse(x1, pos_beta, pos_gamma, self.norm_type)
-            tattn = self.temporal_mhsa(temp, temp, x1, temporal_allow)
-        x = x + tattn
-        return x + self._linear_ffn(self.norm4(x))
+            tattn = self.temporal_mhsa(temp, temp, x1, temporal_allow,
+                                       rng=fold(rng, "temporal_mhsa"))
+        x = x + self._drop(tattn, rng, "drop_temporal")
+        return x + self._linear_ffn(self.norm4(x), rng)
+
+
+def _run_blocks(stack, blocks, x, args, rng):
+    """Thread ``x`` through ``blocks``, each called as ``block(x, *args,
+    rng=...)`` with its own stream; with ``stack.remat`` in training under
+    grad, each block's activations are recomputed in the backward pass. The
+    masks come from the block's stream, so the recomputation draws the same
+    ones."""
+    remat = stack.remat and stack.training and torch.is_grad_enabled()
+    for i, block in enumerate(blocks):
+        block_rng = fold(rng, f"layer_{i}")
+        if remat:
+            x = checkpoint(block, x, *args, rng=block_rng,
+                           use_reentrant=False)
+        else:
+            x = block(x, *args, rng=block_rng)
+    return x
 
 
 class VidHRFormerEncoder(nn.Module):
@@ -352,18 +406,18 @@ class VidHRFormerEncoder(nn.Module):
     caller, whose parameters are shared with the decoder's."""
 
     def __init__(self, num_layers: int, embed_dim: int, num_heads: int,
-                 **block_kw):
+                 remat: bool = False, **block_kw):
         super().__init__()
-        self.num_layers = num_layers
+        self.num_layers, self.remat = num_layers, remat
         for i in range(num_layers):
             self.add_module(f"layer_{i}", VidHRFormerBlockEnc(
                 embed_dim, num_heads, **block_kw))
 
-    def forward(self, x, pos_beta, pos_gamma, temporal_allow=None):
-        for i in range(self.num_layers):
-            x = getattr(self, f"layer_{i}")(x, pos_beta, pos_gamma,
-                                            temporal_allow)
-        return x
+    def forward(self, x, pos_beta, pos_gamma, temporal_allow=None,
+                rng: Optional[Rng] = None):
+        blocks = [getattr(self, f"layer_{i}") for i in range(self.num_layers)]
+        return _run_blocks(self, blocks, x,
+                           (pos_beta, pos_gamma, temporal_allow), rng)
 
 
 class VidHRFormerBlockDecNAR(VidHRFormerBlockEnc):
@@ -375,45 +429,51 @@ class VidHRFormerBlockDecNAR(VidHRFormerBlockEnc):
     n_norms = 6
 
     def __init__(self, embed_dim: int, num_heads: int, window_size: int = 4,
+                 dropout: float = 0.0, drop_path: float = 0.0,
                  ffn_hidden_ratio: int = 4, dim_feedforward: int = 1024,
                  norm_type: str = "layer", affine_posfuse: bool = False,
                  exec_mode: str = "xla", spatial: Tuple[int, int] = (8, 8),
                  dtype=torch.float32):
-        super().__init__(embed_dim, num_heads, window_size, ffn_hidden_ratio,
-                         dim_feedforward, norm_type, affine_posfuse,
-                         exec_mode, spatial, dtype)
-        self.enc_dec_attn = TemporalAttention(embed_dim, num_heads,
+        super().__init__(embed_dim, num_heads, window_size, dropout,
+                         drop_path, ffn_hidden_ratio, dim_feedforward,
+                         norm_type, affine_posfuse, exec_mode, spatial, dtype)
+        self.enc_dec_attn = TemporalAttention(embed_dim, num_heads, dropout,
                                               exec_mode, dtype)
         self.spatial_ffn1 = MlpDWBN(embed_dim, ffn_hidden_ratio * embed_dim,
-                                    embed_dim, spatial, dtype)
+                                    embed_dim, spatial, dropout, dtype)
 
     def forward(self, tgt, query_evt, memory, mem_pos, tgt_pos,
-                self_allow=None, cross_allow=None, cross_pkv=None):
+                self_allow=None, cross_allow=None, cross_pkv=None,
+                rng: Optional[Rng] = None):
         mem_beta, mem_gamma = mem_pos
         tgt_beta, tgt_gamma = tgt_pos
         fuse = lambda t, b, g: pos_feat_fuse(t, b, g,  # noqa: E731
                                              self.norm_type)
+        dp = lambda y, tag: self.drop_path(y, fold(rng, tag))  # noqa: E731
         tgt2 = self.norm1(tgt)
-        if self.affine:
+        if self.fused:
             attn = self.slmhsa(tgt2, tgt2, pos_beta=tgt_beta, evt=query_evt)
         else:
             attn = self.slmhsa(fuse(tgt2 + query_evt, tgt_beta, tgt_gamma),
-                               tgt2)
-        tgt2 = tgt + attn
-        tgt2 = tgt2 + self.spatial_ffn(self.norm2(tgt2))
+                               tgt2, rng=fold(rng, "slmhsa"))
+        tgt2 = tgt + dp(attn, "drop_path1")
+        tgt2 = tgt2 + dp(self.spatial_ffn(self.norm2(tgt2),
+                                          fold(rng, "spatial_ffn")),
+                         "drop_path2")
 
         t_in = self.norm3(tgt2)
-        if self.affine:
+        if self.fused:
             tattn = self.temporal_mhsa(t_in, t_in, t_in, self_allow,
                                        pos_beta_q=tgt_beta)
         else:
             temp = fuse(t_in, tgt_beta, tgt_gamma)
-            tattn = self.temporal_mhsa(temp, temp, t_in, self_allow)
-        tgt2 = tgt2 + tattn
-        tgt2 = tgt2 + self._linear_ffn(self.norm4(tgt2))
+            tattn = self.temporal_mhsa(temp, temp, t_in, self_allow,
+                                       rng=fold(rng, "temporal_mhsa"))
+        tgt2 = tgt2 + self._drop(tattn, rng, "drop_temporal")
+        tgt2 = tgt2 + self._linear_ffn(self.norm4(tgt2), rng)
 
         q_in = self.norm5(tgt2)
-        if self.affine:
+        if self.fused:
             cattn = self.enc_dec_attn(q_in, memory, memory, cross_allow,
                                       pos_beta_q=tgt_beta,
                                       pos_beta_kv=mem_beta, evt_q=query_evt,
@@ -421,21 +481,24 @@ class VidHRFormerBlockDecNAR(VidHRFormerBlockEnc):
         else:
             cattn = self.enc_dec_attn(
                 fuse(q_in + query_evt, tgt_beta, tgt_gamma),
-                fuse(memory, mem_beta, mem_gamma), memory, cross_allow)
-        tgt2 = tgt2 + cattn
-        return tgt2 + self.spatial_ffn1(self.norm6(tgt2))
+                fuse(memory, mem_beta, mem_gamma), memory, cross_allow,
+                rng=fold(rng, "enc_dec_attn"))
+        tgt2 = tgt2 + dp(cattn, "drop_path3")
+        return tgt2 + dp(self.spatial_ffn1(self.norm6(tgt2),
+                                           fold(rng, "spatial_ffn1")),
+                         "drop_path4")
 
 
 class VidHRFormerDecoderNAR(nn.Module):
     """Non-autoregressive decoder: the target starts at zeros and every
-    target frame is generated in one pass. On the affine path the k/v
-    projections of all layers' cross-attentions, which read the same
-    memory, run as one (C → L·2·HD) matmul."""
+    target frame is generated in one pass. On the affine path (eval mode)
+    the k/v projections of all layers' cross-attentions, which read the
+    same memory, run as one (C → L·2·HD) matmul."""
 
     def __init__(self, num_layers: int, embed_dim: int, num_heads: int,
-                 **block_kw):
+                 remat: bool = False, **block_kw):
         super().__init__()
-        self.num_layers = num_layers
+        self.num_layers, self.remat = num_layers, remat
         self.affine = block_kw.get("affine_posfuse", False)
         self.dtype = block_kw.get("dtype", torch.float32)
         for i in range(num_layers):
@@ -443,25 +506,24 @@ class VidHRFormerDecoderNAR(nn.Module):
                 embed_dim, num_heads, **block_kw))
 
     def forward(self, query_evt, memory, mem_pos, tgt_pos, self_allow=None,
-                cross_allow=None):
+                cross_allow=None, rng: Optional[Rng] = None):
         N, _, H, W, C = query_evt.shape
         TP = tgt_pos[0].shape[0] // (H * W)
         tgt = torch.zeros((N, TP, H, W, C), dtype=query_evt.dtype,
                           device=query_evt.device)
         blocks = [getattr(self, f"layer_{i}") for i in range(self.num_layers)]
-        cross_pkvs = [None] * self.num_layers
-        if self.affine:
-            pieces, HD = [], None
-            for b in blocks:
-                w3, (_, wk_f), _, _ = _qkv_weights(b.enc_dec_attn.attn)
-                HD = wk_f.shape[1]
-                pieces.append(torch.cat([wk_f, w3[:, 2 * HD:]], -1))
-            P = _mm(memory.permute(0, 2, 3, 1, 4), torch.cat(pieces, -1),
-                    self.dtype)
-            cross_pkvs = [(P[..., l * 2 * HD:l * 2 * HD + HD],
-                           P[..., l * 2 * HD + HD:(l + 1) * 2 * HD])
-                          for l in range(self.num_layers)]
-        for block, pkv in zip(blocks, cross_pkvs):
-            tgt = block(tgt, query_evt, memory, mem_pos, tgt_pos, self_allow,
-                        cross_allow, cross_pkv=pkv)
+        args = (query_evt, memory, mem_pos, tgt_pos, self_allow, cross_allow)
+        if not (self.affine and not self.training):
+            return _run_blocks(self, blocks, tgt, args, rng)
+        pieces, HD = [], None
+        for b in blocks:
+            w3, (_, wk_f), _, _ = _qkv_weights(b.enc_dec_attn.attn)
+            HD = wk_f.shape[1]
+            pieces.append(torch.cat([wk_f, w3[:, 2 * HD:]], -1))
+        P = _mm(memory.permute(0, 2, 3, 1, 4), torch.cat(pieces, -1),
+                self.dtype)
+        for l, block in enumerate(blocks):
+            pkv = (P[..., l * 2 * HD:l * 2 * HD + HD],
+                   P[..., l * 2 * HD + HD:(l + 1) * 2 * HD])
+            tgt = block(tgt, *args, cross_pkv=pkv)
         return tgt

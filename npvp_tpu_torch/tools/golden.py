@@ -26,8 +26,7 @@ def load_golden(path=GOLDEN) -> dict:
                if not k.startswith(("vars/", "__meta__"))}
         meta = json.loads(bytes(data["__meta__"]))
     tree = unflatten(flat)["vars"]
-    pred_s = {k: {**{m: v for m, v in tree["pred"][k].items()
-                     if m != "evt_posterior"}, **tree["pred_s"][k]}
+    pred_s = {k: {**tree["pred"][k], **tree["pred_s"][k]}
               for k in ("params", "batch_stats")}
     cfg_d, cfg_s = from_dict(meta).validate(), from_dict(meta)
     cfg_s.Predictor.stochastic = True

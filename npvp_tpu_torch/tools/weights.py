@@ -111,8 +111,7 @@ def load_flax(module: nn.Module, variables: dict,
 
     Raises if a parameter or buffer of ``module`` finds no flax value, if a
     shape differs, or if a flax leaf is left over outside the module paths
-    in ``ignore`` (subtrees this module does not hold, such as NPVP-S's
-    training-only posterior)."""
+    in ``ignore`` (subtrees this module does not hold)."""
     params = variables.get("params", {})
     stats = variables.get("batch_stats", {})
     own = module.state_dict()

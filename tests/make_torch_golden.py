@@ -12,8 +12,9 @@ so the file stays under 1 MiB):
 
 - ``vars/ae/...`` and ``vars/pred/...``: the AE and the NPVP-D predictor,
   random flax variables from a seed (``_torch_helpers.random_variables``);
-- ``vars/pred_s/...``: NPVP-S's ``evt_prior``; NPVP-S is NPVP-D's variables
-  with ``evt_posterior`` replaced by it (one transformer stored for both);
+- ``vars/pred_s/...``: NPVP-S's ``evt_prior`` and (stochastic)
+  ``evt_posterior``; NPVP-S is NPVP-D's variables with these two in place of
+  NPVP-D's ``evt_posterior`` (one transformer stored for both);
 - ``frames`` (2, 4, 32, 32, 1) of 8-bit levels k/128 (stored float16,
   exactly), ``eps`` (2, 4, 4, 32): the inputs;
 - ``{vfp,hvrc}_{d,s}``: JAX outputs of VFP 4→2 and of an HVRC task with
@@ -97,15 +98,17 @@ def golden_arrays() -> dict:
     feats0 = np.zeros((1, 2, p.max_H, p.max_W, p.embed_dim))
     oc0 = np.zeros((2 * p.max_H * p.max_W, 3))
     rngs = {"params": jax.random.key(1), "latent": jax.random.key(2)}
-    init = lambda cfg, seed: random_variables(  # noqa: E731
+    init = lambda cfg, seed, **kw: random_variables(  # noqa: E731
         functools.partial(build_predictor(cfg, jnp.float32).init,
-                          num_target=2), rngs, feats0, oc0, oc0, seed=seed)
+                          num_target=2, **kw), rngs, feats0, oc0, oc0,
+        seed=seed)
     pred_d = _f16(init(cfg_d, 2))
-    vars_s = init(cfg_s, 3)
-    prior = _f16({k: {"evt_prior": vars_s[k]["evt_prior"]}
-                  for k in ("params", "batch_stats")})
-    pred_s = {k: {**{m: v for m, v in pred_d[k].items()
-                     if m != "evt_posterior"}, **prior[k]}
+    # the target features make flax create NPVP-S's posterior
+    vars_s = init(cfg_s, 3, target_feats_gt=feats0)
+    latent_s = _f16({k: {m: vars_s[k][m]
+                         for m in ("evt_prior", "evt_posterior")}
+                     for k in ("params", "batch_stats")})
+    pred_s = {k: {**pred_d[k], **latent_s[k]}
               for k in ("params", "batch_stats")}
 
     rng = np.random.default_rng(4)
@@ -145,7 +148,7 @@ def golden_arrays() -> dict:
               "hvrc_tp": HVRC_TP, **out}
     _flatten(ae_vars, "vars/ae", arrays)
     _flatten(pred_d, "vars/pred", arrays)
-    _flatten(prior, "vars/pred_s", arrays)
+    _flatten(latent_s, "vars/pred_s", arrays)
     meta = json.dumps(dataclasses.asdict(cfg_d))
     arrays["__meta__"] = np.frombuffer(meta.encode(), np.uint8)
     return arrays

@@ -44,7 +44,7 @@ def test_autoencoder_encode_decode():
     variables = random_variables(ae.init, jax.random.key(0), frames)
     # one jit (one compile) instead of an eager compile per op
     feats, rec = jax.jit(lambda v, x: ae.apply(v, x))(variables, frames)[::-1]
-    port = load_flax(tae.build_ae(port_config(cfg)), variables)
+    port = load_flax(tae.build_ae(port_config(cfg)), variables).eval()
     with torch.no_grad():
         got_feats = port.encode(torch.from_numpy(frames))
         got_rec = port.decode(torch.from_numpy(np.array(feats)))
@@ -58,7 +58,7 @@ def test_non_local_attention_2d():
     mod = jae.NonLocalAttention2D()
     variables = random_variables(mod.init, jax.random.key(0), x)
     want = mod.apply(variables, jnp.asarray(x))
-    port = load_flax(tae.NonLocalAttention2D(16), variables)
+    port = load_flax(tae.NonLocalAttention2D(16), variables).eval()
     with torch.no_grad():
         _close(port(torch.from_numpy(x)), want)
 
@@ -116,7 +116,7 @@ def test_event_encoder(stochastic, inject, monkeypatch):
     want = mod.apply(variables, jnp.asarray(x), sample=inject,
                      rngs={"latent": jax.random.key(2)})
     port = load_flax(tnp_mod.EventEncoder(32, 16, stochastic=stochastic),
-                     variables)
+                     variables).eval()
     with torch.no_grad():
         got = port(torch.from_numpy(x),
                    torch.from_numpy(eps) if inject else None)

@@ -1,5 +1,6 @@
 """The port stands alone: no module of npvp_tpu_torch and no line of
-chip_smoke.py imports jax or the JAX package npvp_tpu."""
+chip_smoke.py imports jax, flax, optax, orbax or the JAX package
+npvp_tpu."""
 
 import ast
 from pathlib import Path
@@ -26,7 +27,8 @@ def _sources():
     p.relative_to(ROOT)))
 def test_no_jax_import(path):
     bad = [m for m in _imports(path)
-           if m.split(".")[0] in ("jax", "jaxlib", "flax", "npvp_tpu")]
+           if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
+                                  "npvp_tpu")]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
     text = path.read_text()
     assert "import_module(" not in text and "__import__(" not in text

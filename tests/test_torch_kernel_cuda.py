@@ -3,8 +3,10 @@ card: the cases of tests/test_torch_kernel.py at card sizes (masked and
 unmasked, Tq ≠ Tk, fused and attention-only, ragged site counts) and the
 edges of the bf16 kernel's 64-row tiles of whole sites (unused rows, T = 20,
 one query over 20 keys, a query row whose keys are all masked, C ≠ H·D, a
-last tile of one site), fp32 (tol 1e-4) and bf16 (tol 2e-2), with heads of
-64 as the bf16 kernel takes them. Every test is marked ``cuda`` and skips
+last tile of one site), the shapes and masks of the stage-2 trainer's eval
+step at the SMMNIST config (T = 15, per-batch observed/target masks), fp32
+(tol 1e-4) and bf16 (tol 2e-2), with heads of 64 as the bf16 kernel takes
+them; and the wrapper's refusal of inputs that need a gradient. Every test is marked ``cuda`` and skips
 without an NVIDIA GPU: a CUDA kernel has no CPU mode. No jax here, so the
 file runs where only torch is installed:
 
@@ -100,9 +102,10 @@ def test_cuda_kernel_casts_an_fp32_weight_once(cuda):
     t = lambda a: torch.from_numpy(a).to(cuda, torch.bfloat16)  # noqa
     bias = ta.allow_to_bias(torch.from_numpy(allow).to(cuda))
     kw = dict(num_heads=2, wo=lin.weight, bo=lin.bias)
-    got = ta.temporal_attention(t(q), t(k), t(v), bias, **kw)
-    again = ta.temporal_attention(t(q), t(k), t(v), bias, **kw)
-    want = ta.temporal_attention_plain(t(q), t(k), t(v), bias, **kw)
+    with torch.no_grad():  # the weight requires grad; the kernel has no VJP
+        got = ta.temporal_attention(t(q), t(k), t(v), bias, **kw)
+        again = ta.temporal_attention(t(q), t(k), t(v), bias, **kw)
+        want = ta.temporal_attention_plain(t(q), t(k), t(v), bias, **kw)
     assert ta.wo_operand(lin.weight, torch.bfloat16) is ta.wo_operand(
         lin.weight, torch.bfloat16)
     torch.testing.assert_close(got, again, atol=0, rtol=0)
@@ -121,3 +124,61 @@ def test_cuda_kernel_rejects_bad_input(cuda):
     h32 = torch.zeros(4, 8, 64, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="unsupported shape"):  # heads of 32
         ta.temporal_attention(h32, h32, h32, num_heads=2)
+
+
+# the stage-2 eval step at the SMMNIST config (batch 8, max_T 15, 8 × 8
+# sites, 8 heads of 64): windows, the EVT-Former's temporal attention with
+# the observed frames' allow matrix, the decoder's self-attention over the
+# target frames, and its cross-attention over the observed ones
+OBS15 = np.array([1, 0, 1, 1, 0, 0, 1, 0, 1, 0, 0, 1, 0, 0, 0], bool)
+
+
+def _eval_allow(kind):
+    from npvp_tpu_torch.nn.vidhrformer import encoder_temporal_allow
+
+    obs = torch.from_numpy(OBS15)
+    if kind == "encoder":
+        return encoder_temporal_allow(15, obs)
+    if kind == "decoder_self":
+        return (~obs)[None, :].expand(15, 15)
+    return obs[None, :].expand(15, 15)  # cross
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("fuse", [True, False])
+@pytest.mark.parametrize("B,T,kind", [(480, 16, None),
+                                      (512, 15, "encoder"),
+                                      (512, 15, "decoder_self"),
+                                      (512, 15, "cross")])
+def test_cuda_kernel_at_eval_step_shapes(cuda, dtype, tol, fuse, B, T, kind):
+    q, k, v, _, wo, bo = _inputs(B, T, T, 8, 64, 512 if fuse else None,
+                                 seed=B + T)
+    t = lambda a: None if a is None else torch.from_numpy(a).to(  # noqa
+        device=cuda, dtype=dtype)
+    bias = None if kind is None else ta.allow_to_bias(
+        _eval_allow(kind).to(cuda))
+    kw = dict(num_heads=8, wo=t(wo),
+              bo=None if bo is None else torch.from_numpy(bo).to(cuda))
+    got = ta.temporal_attention(t(q), t(k), t(v), bias, **kw)
+    want = ta.temporal_attention_plain(t(q), t(k), t(v), bias, **kw)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_refuses_autograd(cuda):
+    """The kernel has no backward: inputs that need a gradient raise rather
+    than come back without one; under no_grad the same call runs."""
+    q = torch.randn(8, 10, 128, device=cuda, requires_grad=True)
+    lin = torch.nn.Linear(128, 128).to(cuda)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ta.temporal_attention(q, q, q, num_heads=2)
+    x = q.detach()
+    with pytest.raises(RuntimeError, match="no backward"):
+        ta.temporal_attention(x, x, x, num_heads=2, wo=lin.weight,
+                              bo=lin.bias)
+    with torch.no_grad():
+        out = ta.temporal_attention(x, x, x, num_heads=2, wo=lin.weight,
+                                    bo=lin.bias)
+    assert out.shape == (8, 10, 128) and not out.requires_grad

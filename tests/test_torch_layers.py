@@ -70,7 +70,7 @@ def test_norms(kind):
     }[kind]
     variables = random_variables(mod.init, jax.random.key(0), x)
     want = mod.apply(variables, jnp.asarray(x))
-    _close(load_flax(port, variables)(torch.from_numpy(x)), want)
+    _close(load_flax(port, variables).eval()(torch.from_numpy(x)), want)
 
 
 def test_fp32_moments_and_reflect_pad():
@@ -100,4 +100,4 @@ def test_conv_bn_act(kernel, stride, padding, groups, bias, act):
     variables = random_variables(mod.init, jax.random.key(0), x)
     want = mod.apply(variables, jnp.asarray(x))
     port = tl.ConvBNAct(8, 8, kernel, stride, padding, bias, act, groups)
-    _close(load_flax(port, variables)(torch.from_numpy(x)), want)
+    _close(load_flax(port, variables).eval()(torch.from_numpy(x)), want)

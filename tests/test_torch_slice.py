@@ -35,10 +35,14 @@ def _jax_predictor(cfg, seed):
     ae_vars = random_variables(ae.init, jax.random.key(0), np.zeros(
         (1, 2, d.img_size, d.img_size, d.img_channels)), seed=seed)
     pred = build_predictor(cfg, jnp.float32, exec_mode="xla")
-    init = lambda *a: pred.init(*a, num_target=2)  # noqa: E731
+    feats0 = np.zeros((1, 2, p.max_H, p.max_W, p.embed_dim))
+    # with target features flax also creates NPVP-S's posterior
+    init = lambda *a: pred.init(  # noqa: E731
+        *a, num_target=2,
+        target_feats_gt=feats0 if p.stochastic else None)
     pred_vars = random_variables(
         init, {"params": jax.random.key(1), "latent": jax.random.key(2)},
-        np.zeros((1, 2, p.max_H, p.max_W, p.embed_dim)),
+        feats0,
         np.zeros((2 * p.max_H * p.max_W, 3)),
         np.zeros((2 * p.max_H * p.max_W, 3)), seed=seed + 1)
     return JaxVP(cfg, ae, ae_vars, pred, pred_vars), ae_vars, pred_vars

@@ -164,7 +164,7 @@ def test_encoder_block(affine):
     variables = random_variables(mod.init, jax.random.key(0), *args)
     port = load_flax(tv.VidHRFormerBlockEnc(
         C, NH, window_size=2, ffn_hidden_ratio=2, dim_feedforward=64,
-        affine_posfuse=affine, spatial=(4, 4)), variables)
+        affine_posfuse=affine, spatial=(4, 4)), variables).eval()
     _close(port(*_tree_t(args)), mod.apply(variables, *_tree_j(args)))
 
 
@@ -178,7 +178,7 @@ def test_decoder_block(affine):
     variables = random_variables(mod.init, jax.random.key(0), *args)
     port = load_flax(tv.VidHRFormerBlockDecNAR(
         C, NH, window_size=2, ffn_hidden_ratio=2, dim_feedforward=64,
-        affine_posfuse=affine, spatial=(4, 4)), variables)
+        affine_posfuse=affine, spatial=(4, 4)), variables).eval()
     _close(port(*_tree_t(args)), mod.apply(variables, *_tree_j(args)))
 
 
@@ -198,9 +198,10 @@ def test_stacks_with_kernel_match_jax_pallas(monkeypatch, fuse):
     enc = jv.VidHRFormerEncoder(2, C, NH, dropout=0.0, drop_path=0.0, **kw)
     variables = random_variables(enc.init, jax.random.key(0), x, beta, gamma)
     port = load_flax(tv.VidHRFormerEncoder(2, C, NH, spatial=(4, 4), **kw),
-                     variables)
-    _close(port(_t(x), _t(beta), _t(gamma)),
-           jax.jit(enc.apply)(variables, x, beta, gamma))
+                     variables).eval()
+    with torch.no_grad():  # the kernel has no backward
+        got = port(_t(x), _t(beta), _t(gamma))
+    _close(got, jax.jit(enc.apply)(variables, x, beta, gamma))
 
     _, evt, mem, mpos, tpos = _dec_args(4, 4)
     dec = jv.VidHRFormerDecoderNAR(2, C, NH, dropout=0.0, drop_path=0.0,
@@ -208,9 +209,10 @@ def test_stacks_with_kernel_match_jax_pallas(monkeypatch, fuse):
     dargs = (evt, mem, mpos, tpos)
     variables = random_variables(dec.init, jax.random.key(1), *dargs)
     port = load_flax(tv.VidHRFormerDecoderNAR(2, C, NH, spatial=(4, 4),
-                                              **kw), variables)
-    _close(port(*_tree_t(dargs)), jax.jit(dec.apply)(variables,
-                                                     *_tree_j(dargs)))
+                                              **kw), variables).eval()
+    with torch.no_grad():
+        got = port(*_tree_t(dargs))
+    _close(got, jax.jit(dec.apply)(variables, *_tree_j(dargs)))
 
 
 @pytest.mark.parametrize("H,W", [(8, 8), (6, 6), (6, 10)])
@@ -218,7 +220,7 @@ def test_port_enc_block_affine_equals_generic(H, W):
     args = _tree_t(_enc_args(H, W))
     torch.manual_seed(0)
     mk = lambda af: tv.VidHRFormerBlockEnc(  # noqa: E731
-        C, NH, dim_feedforward=64, affine_posfuse=af, spatial=(H, W))
+        C, NH, dim_feedforward=64, affine_posfuse=af, spatial=(H, W)).eval()
     generic, affine = mk(False), mk(True)
     affine.load_state_dict(generic.state_dict())
     _close(affine(*args), generic(*args), atol=2e-5, rtol=0)
@@ -229,7 +231,7 @@ def test_port_dec_block_affine_equals_generic(H, W):
     args = _tree_t(_dec_args(H, W))
     torch.manual_seed(0)
     mk = lambda af: tv.VidHRFormerBlockDecNAR(  # noqa: E731
-        C, NH, dim_feedforward=64, affine_posfuse=af, spatial=(H, W))
+        C, NH, dim_feedforward=64, affine_posfuse=af, spatial=(H, W)).eval()
     generic, affine = mk(False), mk(True)
     affine.load_state_dict(generic.state_dict())
     _close(affine(*args), generic(*args), atol=3e-5, rtol=0)
@@ -239,7 +241,7 @@ def test_port_decoder_cross_kv_hoist_equals_generic():
     _, evt, mem, mpos, tpos = _tree_t(_dec_args(8, 8))
     torch.manual_seed(0)
     mk = lambda af: tv.VidHRFormerDecoderNAR(  # noqa: E731
-        2, C, NH, dim_feedforward=64, affine_posfuse=af, spatial=(8, 8))
+        2, C, NH, dim_feedforward=64, affine_posfuse=af, spatial=(8, 8)).eval()
     generic, affine = mk(False), mk(True)
     affine.load_state_dict(generic.state_dict())
     _close(affine(evt, mem, mpos, tpos), generic(evt, mem, mpos, tpos),
