@@ -520,11 +520,16 @@ def phase_training(torch, ta):
         got = steps.eval(state, batch, Rng(123))
         want = steps.eval(types.SimpleNamespace(model=plain), batch,
                           Rng(123))
+        # each metric within 1e-3 of its own size (some are near 1e-2, so
+        # the 2e-2 outer bound alone could not fail on them)
         diffs = {k: abs(float(got[k]) - float(want[k])) for k in want}
+        bound = {k: min(2e-2, 1e-3 * abs(float(want[k])) + 1e-5)
+                 for k in want}
         print("eval losses, kernel vs plain: " + ", ".join(
-            f"{k} {float(got[k]):.5f} vs {float(want[k]):.5f}"
-            for k in want) + f"; max|d| {max(diffs.values()):.2e} (tol 2e-2)")
-        check(max(diffs.values()) <= 2e-2, "kernel eval departs from plain")
+            f"{k} {float(got[k]):.6f} vs {float(want[k]):.6f} "
+            f"(|d| {diffs[k]:.2e}, tol {bound[k]:.2e})" for k in want))
+        far = [k for k in want if not diffs[k] <= bound[k]]
+        check(not far, f"kernel eval departs from plain in {far}")
 
         # checkpoint round trip: the next step from a restored state
         train_batch = steps.place(next(iter(dm.train_loader("rand_context"))))

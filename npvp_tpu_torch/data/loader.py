@@ -9,9 +9,9 @@ Batches are fixed-shape numpy dicts:
   ``obs_mask``/``tgt_mask``, one random split per batch.
 
 Epoch ``e`` shuffles with ``SeedSequence([seed, e])`` and draws each
-batch's split from ``SeedSequence([seed + 7, e, process_index])``, in the
-order of the JAX loader (split point, then permutation), so both loaders
-yield the same batches from the same dataset.
+batch's split from ``SeedSequence([seed + 7, e, 0])``, in the order of the
+JAX loader (split point, then permutation), so both loaders yield the same
+batches from the same dataset as the JAX loader's process 0.
 """
 
 from __future__ import annotations
@@ -33,8 +33,8 @@ class SubsetDataset:
     def __len__(self):
         return len(self.indices)
 
-    def __getitem__(self, idx, rng=None):
-        return self.base.__getitem__(self.indices[idx], rng)
+    def __getitem__(self, idx):
+        return self.base[self.indices[idx]]
 
 
 class ConcatDataset:
@@ -45,10 +45,9 @@ class ConcatDataset:
     def __len__(self):
         return int(self._offsets[-1])
 
-    def __getitem__(self, idx, rng=None):
+    def __getitem__(self, idx):
         part = int(np.searchsorted(self._offsets, idx, side="right") - 1)
-        return self.parts[part].__getitem__(idx - int(self._offsets[part]),
-                                            rng)
+        return self.parts[part][idx - int(self._offsets[part])]
 
 
 class BatchLoader:
@@ -57,8 +56,7 @@ class BatchLoader:
                  min_lo: int = 1, max_lo: Optional[int] = None,
                  to_idx: Optional[Sequence[int]] = None,
                  tp_idx: Optional[Sequence[int]] = None, seed: int = 0,
-                 drop_last: bool = True, process_index: int = 0,
-                 process_count: int = 1):
+                 drop_last: bool = True):
         if mode not in ("pairs", "vfi", "rand_context"):
             raise ValueError(f"unknown mode {mode!r}")
         self.dataset, self.batch_size, self.shuffle = (dataset, batch_size,
@@ -70,7 +68,6 @@ class BatchLoader:
         self.to_idx = None if to_idx is None else np.asarray(to_idx)
         self.tp_idx = None if tp_idx is None else np.asarray(tp_idx)
         self.seed, self.drop_last = seed, drop_last
-        self.process_index, self.process_count = process_index, process_count
         self.epoch = 0
 
     def set_epoch(self, epoch: int) -> None:
@@ -81,18 +78,16 @@ class BatchLoader:
         if self.shuffle:
             idx = np.random.default_rng(np.random.SeedSequence(
                 [self.seed, self.epoch])).permutation(idx)
-        return idx[self.process_index::self.process_count]
+        return idx
 
     def __len__(self) -> int:
-        n = len(self._indices())
+        n = len(self.dataset)
         return (n // self.batch_size if self.drop_last
                 else -(-n // self.batch_size))
 
     def _make_batch(self, sample_ids, batch_rng) -> Dict[str, np.ndarray]:
-        clip = np.stack([self.dataset.__getitem__(
-            int(i), np.random.default_rng(np.random.SeedSequence(
-                [self.seed, self.epoch, int(i)])))
-            for i in sample_ids]).astype(np.float32)       # (N, T, H, W, C)
+        clip = np.stack([self.dataset[int(i)] for i in sample_ids]
+                        ).astype(np.float32)               # (N, T, H, W, C)
         if self.mode == "pairs":
             return {"past": clip[:, :self.num_past],
                     "future": clip[:, self.num_past:]}
@@ -108,7 +103,7 @@ class BatchLoader:
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         idx = self._indices()
         batch_rng = np.random.default_rng(np.random.SeedSequence(
-            [self.seed + 7, self.epoch, self.process_index]))
+            [self.seed + 7, self.epoch, 0]))
         for b in range(len(self)):
             yield self._make_batch(
                 idx[b * self.batch_size:(b + 1) * self.batch_size], batch_rng)
@@ -120,11 +115,9 @@ class DataModule:
     and ``len_train_loader`` is kept for the per-batch rate schedule. Other
     datasets raise ``NotImplementedError`` (their loaders are not ported)."""
 
-    def __init__(self, cfg, sprites: Optional[Dict[str, np.ndarray]] = None,
-                 process_index: int = 0, process_count: int = 1):
+    def __init__(self, cfg, sprites: Optional[Dict[str, np.ndarray]] = None):
         self.cfg = cfg
         self.sprites = sprites or {}
-        self.process_index, self.process_count = process_index, process_count
         self.train_transform, self.renorm = build_transforms(
             cfg.Dataset.name, True)
         self.test_transform, _ = build_transforms(cfg.Dataset.name, False)
@@ -174,8 +167,7 @@ class DataModule:
             num_past=num_past, num_future=num_future, mode=mode,
             min_lo=p.min_lo, max_lo=p.max_lo, to_idx=to_idx, tp_idx=tp_idx,
             seed=cfg.Env.rand_seed + {"train": 0, "val": 1, "test": 2}[split],
-            drop_last=(split != "test"), process_index=self.process_index,
-            process_count=self.process_count)
+            drop_last=(split != "test"))
 
     def predictor_mode(self) -> str:
         p = self.cfg.Predictor

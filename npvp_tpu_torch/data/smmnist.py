@@ -87,8 +87,7 @@ class StochasticMovingMNIST:
     def __len__(self):
         return self._length
 
-    def __getitem__(self, idx: int, rng=None) -> np.ndarray:
-        del rng  # the clip depends on its index alone
+    def __getitem__(self, idx: int) -> np.ndarray:
         r = np.random.default_rng(
             np.random.SeedSequence([idx, int(self._train)]))
         S, D = self.image_size, self.digit_size

@@ -310,9 +310,8 @@ def test_masked_mode_no_target_leakage():
             with torch.no_grad():
                 outs.append(model(x, vol, vol, obs_mask=obs,
                                   tgt_mask=~obs).pred_features)
-        if train:  # the BatchNorm statistics moved with the first call
-            continue
-        _close(outs[1], outs[0], atol=1e-5, rtol=0)
+        _close(outs[1], outs[0], atol=1e-5, rtol=0,
+               err_msg=f"train={train}")
     model.eval()
     with torch.no_grad():
         a = model(feats, vol, vol, obs_mask=obs, tgt_mask=~obs)
