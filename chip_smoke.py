@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--phases 1,2]
 
 Builds the temporal-attention kernel from ``npvp_tpu_torch/kernels/csrc``
-with nvcc, then runs five phases (all of them by default; ``--phases``
+with nvcc, then runs eight phases (all of them by default; ``--phases``
 picks some, for a short check), each printing its own lines:
 
 1. environment: the card's name and power limit, torch, CUDA, nvcc, the
@@ -30,10 +30,29 @@ picks some, for a short check), each printing its own lines:
    and one validation pass of 20 eval steps through
    ``npvp_tpu_torch.train.stage2_predictor.train`` with the kernel in the
    eval step: ms per train and eval step, clips/s, peak memory, kernel
-   launches per step (40 per eval step, none in a train step), finite
-   losses, the eval losses against the plain path (within 2e-2), a
+   launches per step (40 per eval step, none in a train step, 32 for the
+   epoch's GIF, which is checked), finite losses, the eval losses against
+   the plain path (within 1e-3 of their size plus 1e-5, under 2e-2), a
    checkpoint round trip that gives the same next step, and a profiler
-   breakdown of one train step.
+   breakdown of one train step;
+7. stage-1 AE training at full width (the SMMNIST AE config as it stands:
+   ngf 64, 3 downsamplings, clips of 15 at batch 8, bf16): 20 steps and one
+   validation pass through ``npvp_tpu_torch.train.stage1_ae.train``, then
+   its ``--smoke`` CLI: ms per train and eval step, peak memory, finite and
+   falling L1, a checkpoint round trip whose next step is bit-identical, the
+   epoch's GIF (header and frame count), and a profiler breakdown of one
+   train step;
+8. the chain on phase 7's AE checkpoint directory: stage-2 training of
+   SMMNIST Unified NPVP-S at full width (4 steps, its GIF), then
+   ``evaluate`` of the five tasks, best-of-2 over 2 test batches in bf16
+   with the kernel and with the plain path (each task's PSNR within
+   0.01 dB, SSIM and MSE within 1e-3 of their size plus 1e-5, launches =
+   predictor forwards × 32), the
+   evaluation and inference CLIs with GIFs, ``vfp_windowed`` at the
+   flagship shapes (batch 64, 10 → 20 with max_T 20: two windows),
+   ``predict_stream`` of 4 batches against 4 ``freeze_task`` calls with the
+   same noise (equal), and I3D features of predicted and real clips
+   (random weights from a seed). ``--phases 8`` runs phase 7 first.
 
 Any failure exits non-zero; without CUDA it exits non-zero at once. The last
 three lines are the kernels' JSON record, the card's name and power limit,
@@ -43,14 +62,19 @@ and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
+CONFIGS = HERE / "npvp_tpu" / "configs"
+# phase 7 trains the AE into WORK["dir"]/ae; phase 8 reads it there
+WORK = {}
 
 # NVIDIA H100 SXM data sheet (dense): HBM bytes/s and tensor-core FLOP/s
 PEAK_BYTES_S = 3.35e12
@@ -491,8 +515,10 @@ def phase_training(torch, ta):
               "a train step launched the kernel")
         check(all(r["launches"] == 40 for r in ev),
               f"eval steps launched {[r['launches'] for r in ev]}, not 40")
-        check(launches["oproj"] == 40 * len(ev) and launches["attn"] == 0,
-              f"launches {launches}")
+        # and one eval-mode forward (32 launches) for the GIF of epoch 0
+        check(launches["oproj"] == 40 * len(ev) + 32
+              and launches["attn"] == 0, f"launches {launches}")
+        check_gif(Path(tmp) / "log" / "epoch_0.gif", p.max_T)
         train_ms = statistics.median(r["ms"] for r in tr[3:])
         eval_ms = statistics.median(r["ms"] for r in ev[1:] or ev)
         print(f"train(): {len(tr)} train steps + {len(ev)} eval steps in "
@@ -553,10 +579,352 @@ def phase_training(torch, ta):
     result = {"train_ms": train_ms, "eval_ms": eval_ms,
               "clips_per_s": d.batch_size / (train_ms / 1e3),
               "peak_gib": peak, "launches": launches,
-              "eval_launches_per_step": {
-                  k: v // len(ev) for k, v in launches.items()},
+              "eval_launches_per_step": {"oproj": ev[0]["launches"],
+                                         "attn": 0},
               "train_steps": len(tr), "eval_steps": len(ev)}
     print("training " + json.dumps(result))
+    return result
+
+
+def reset_launches(ta):
+    for key in ta.LAUNCHES:
+        ta.LAUNCHES[key] = 0
+
+
+def check_gif(path, frames=None):
+    """Frames of a GIF89a file (its header and blocks read back); fails
+    unless there are ``frames`` of them, or any when None."""
+    from npvp_tpu_torch.core.metrics import gif_frame_count
+
+    n = gif_frame_count(path)
+    check(n == frames if frames is not None else n > 0,
+          f"{path}: {n} frames, not {frames}")
+    return n
+
+
+def phase_stage1(torch, ta):
+    """Stage-1 AE training at full width, then its --smoke CLI."""
+    import numpy as np
+
+    from npvp_tpu_torch.core.checkpoint import CheckpointManager
+    from npvp_tpu_torch.core.config import load_config
+    from npvp_tpu_torch.data.loader import DataModule
+    from npvp_tpu_torch.train import stage1_ae as s1
+
+    steps_wanted, work = 20, WORK["dir"]
+    yaml = CONFIGS / "config_SMMNIST_Autoencoder.yaml"
+    cfg = load_config(yaml, [
+        "AE.epochs=1", "AE.log_per_epochs=1",
+        f"AE.ckpt_save_dir={work}/ae",
+        f"AE.tensorboard_save_dir={work}/ae_log",
+        f"Dataset.dev_set_size={8 * steps_wanted}"])
+    a, d = cfg.AE, cfg.Dataset
+    print(f"SMMNIST AE (ngf {a.ngf}, {a.n_downsampling} downsamplings, "
+          f"{a.num_res_blocks} res blocks, {d.img_size}x{d.img_size}x"
+          f"{d.img_channels}), clips of "
+          f"{d.num_past_frames + d.num_future_frames}, batch {d.batch_size}, "
+          f"{cfg.Env.compute_dtype}")
+    record = {"train": [], "eval": []}
+    clock = [0.0]
+
+    def on_step(kind, index, metrics):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        loss = float(next(iter(metrics.values())))
+        record[kind].append(dict(ms=(now - clock[0]) * 1e3, loss=loss))
+        check(np.isfinite(loss), f"{kind} step {index}: L1 {loss}")
+        clock[0] = time.perf_counter()
+
+    reset_launches(ta)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = clock[0] = time.perf_counter()
+    state = s1.train(cfg, on_step=on_step)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    tr, ev = record["train"], record["eval"]
+    check(len(tr) == steps_wanted and state.step == steps_wanted,
+          f"{len(tr)} train steps, state.step {state.step}")
+    check(len(ev) >= 1, "no eval step ran")
+    check(sum(ta.LAUNCHES.values()) == 0, "the AE launched the kernel")
+    losses = [r["loss"] for r in tr]
+    check(np.mean(losses[-5:]) < np.mean(losses[:5]),
+          f"the L1 did not fall: {losses}")
+    train_ms = statistics.median(r["ms"] for r in tr[3:])
+    eval_ms = statistics.median(r["ms"] for r in ev[1:] or ev)
+    print(f"train(): {len(tr)} train + {len(ev)} eval steps in {wall:.1f} s "
+          f"(set-up included); train step {train_ms:.2f} ms median after 3 "
+          f"warm-up steps ({d.batch_size / (train_ms / 1e3):.1f} clips/s), "
+          f"first three {[round(r['ms'], 1) for r in tr[:3]]} ms; eval step "
+          f"{eval_ms:.2f} ms median; peak memory {peak:.2f} GiB")
+    print(f"L1: train {[round(v, 4) for v in losses]}, eval "
+          f"{[round(r['loss'], 4) for r in ev]}")
+    frames = d.num_past_frames + d.num_future_frames
+    gif = Path(a.tensorboard_save_dir) / "epoch_0.gif"
+    print(f"GIF {gif.name}: GIF89a, {check_gif(gif, frames)} frames, "
+          f"{gif.stat().st_size} bytes")
+    mngr = CheckpointManager(a.ckpt_save_dir, monitor="L1_loss_valid")
+    check(mngr.latest_step() == steps_wanted, "no checkpoint of the run")
+
+    # checkpoint round trip: the next step from a restored state
+    dev = next(state.model.parameters()).device
+    steps = s1.make_steps(dev)
+    batch = steps.place(next(iter(DataModule(cfg).train_loader())))
+    rt = CheckpointManager(Path(work) / "ae_roundtrip", max_to_keep=1)
+    rt.save(state.step, state)
+    want = float(steps.train(state, batch)["L1_loss_train"])
+    fresh = s1.init_state(cfg, s1.build_ae(cfg, s1.compute_dtype(cfg)).to(
+        dev))
+    rt.restore(fresh)
+    got = float(steps.train(fresh, batch)["L1_loss_train"])
+    print(f"checkpoint round trip: next-step L1 {want!r} vs {got!r} after "
+          f"restore ({'bit-identical' if want == got else 'DIFFERENT'})")
+    check(want == got, "the restored state takes a different next step")
+    profile(torch, lambda: steps.train(fresh, batch), "stage-1 train step")
+
+    t0 = time.perf_counter()
+    s1.main(["--config_path", str(yaml), "--smoke", "--override",
+             f"AE.ckpt_save_dir={work}/ae_cli",
+             f"AE.tensorboard_save_dir={work}/ae_cli_log"])
+    cli_s = time.perf_counter() - t0
+    check(CheckpointManager(f"{work}/ae_cli").latest_step() == 2,
+          "the --smoke CLI wrote no checkpoint of step 2")
+    check_gif(Path(work) / "ae_cli_log" / "epoch_0.gif", frames)
+    print(f"stage1_ae --smoke CLI: 2 steps, a checkpoint and a GIF in "
+          f"{cli_s:.1f} s")
+    result = {"train_ms": train_ms, "eval_ms": eval_ms,
+              "clips_per_s": d.batch_size / (train_ms / 1e3),
+              "peak_gib": peak, "first_l1": losses[0], "last_l1": losses[-1],
+              "train_steps": len(tr), "eval_steps": len(ev)}
+    print("stage1 " + json.dumps(result))
+    return result
+
+
+def _stage2_over_ae(torch, ta, np):
+    """Stage 2 (SMMNIST Unified NPVP-S, full width, 4 steps) over phase 7's
+    AE directory; → its config."""
+    from npvp_tpu_torch.core.checkpoint import CheckpointManager
+    from npvp_tpu_torch.core.config import load_config
+    from npvp_tpu_torch.train import stage2_predictor as s2
+
+    work = WORK["dir"]
+    cfg = load_config(CONFIGS / "config_SMMNIST_Unified_NPVP-S.yaml", [
+        "Predictor.exec_mode=pallas", "Predictor.epochs=1",
+        f"Predictor.resume_AE_ckpt={work}/ae",
+        f"Predictor.ckpt_save_dir={work}/pred",
+        f"Predictor.tensorboard_save_dir={work}/pred_log",
+        "Dataset.dev_set_size=32"])
+    frozen = s2.load_frozen_ae(cfg, torch.float32, "cpu").state_dict()
+    trained = CheckpointManager(f"{work}/ae").load()["model"]
+    check(all(torch.equal(v, trained[k]) for k, v in frozen.items()),
+          "the frozen AE is not phase 7's checkpoint")
+    losses = []
+    t0 = time.perf_counter()
+    state = s2.train(cfg, on_step=lambda kind, i, m: losses.append(
+        float(m["loss" if kind == "train" else "loss_val"])))
+    torch.cuda.synchronize()
+    check(state.step == 4 and len(losses) == 8 and np.isfinite(losses).all(),
+          f"stage 2: step {state.step}, losses {losses}")
+    check_gif(Path(work) / "pred_log" / "epoch_0.gif", cfg.Predictor.max_T)
+    print(f"stage 2 over phase 7's AE ({work}/ae): 4 train + 4 eval steps "
+          f"in {time.perf_counter() - t0:.1f} s, losses "
+          f"{[round(v, 4) for v in losses]}, GIF of epoch 0 decoded")
+    return cfg
+
+
+def _evaluate_arms(torch, ta, np, cfg):
+    """The five tasks, best-of-2 over 2 test batches, bf16, kernel and plain
+    arms; → per task its launches, seconds and predicted frames/s."""
+    from npvp_tpu_torch.eval.evaluate import _task_split, evaluate
+
+    d, p = cfg.Dataset, cfg.Predictor
+    batches, samples = 2, 2
+    kw = dict(max_batches=batches, num_samples=samples, baseline=True,
+              ae_ceiling=True, dtype=torch.bfloat16, device="cuda")
+    evaluate(cfg, task="VFP", **{**kw, "max_batches": 1},
+             exec_mode="pallas")  # warm-up: cuDNN and cuBLAS choose
+    out = {}
+    for task in ("VFP", "VPE", "VFI", "VRC", "HVRC"):
+        if task == "VFP":
+            P, n_tgt = d.test_num_past_frames, d.test_num_future_frames
+            windows = -(-n_tgt // (p.max_T - P)) if P + n_tgt > p.max_T \
+                else 1
+        else:
+            windows = 1
+            n_tgt = len(_task_split(task, cfg, cfg.Env.rand_seed)[1])
+        forwards = batches * samples * windows
+        res, secs, launches = {}, {}, {}
+        for arm in ("pallas", "xla"):
+            reset_launches(ta)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res[arm] = evaluate(cfg, task=task, exec_mode=arm, **kw)
+            torch.cuda.synchronize()
+            secs[arm] = time.perf_counter() - t0
+            launches[arm] = dict(ta.LAUNCHES)
+        check(launches["pallas"] == {"oproj": 32 * forwards, "attn": 0},
+              f"{task}: kernel launches {launches['pallas']}, not 32 x "
+              f"{forwards} forwards")
+        check(launches["xla"] == {"oproj": 0, "attn": 0},
+              f"{task}: the plain arm launched the kernel")
+        # each task's metric (its mean over the targets): PSNR within
+        # 0.01 dB, SSIM and MSE within 1e-3 of their own size plus 1e-5
+        # (phase 6's form: the SSIM of a model four steps into training is
+        # near 0); the per-target gaps are printed beside
+        worst = {}
+        for metric in ("PSNR", "SSIM", "MSE"):
+            for tag in ("", "_baseline", "_ae_ceiling"):
+                key = f"{metric}{tag}"
+                got, want = res["pallas"][key], res["xla"][key]
+                per_t = np.asarray(res["pallas"][key + "_per_t"])
+                check(np.isfinite(per_t).all(), f"{task} {key}: {per_t}")
+                err = abs(got - want)
+                if not tag:
+                    worst[metric] = float(err)
+                    worst[metric + "_per_t"] = float(np.abs(
+                        per_t - np.asarray(res["xla"][key + "_per_t"])).max())
+                bound = 0.01 if metric == "PSNR" else 1e-3 * abs(want) + 1e-5
+                check(err <= bound, f"{task} {key}: kernel {got} vs plain "
+                      f"{want} (|d| {err:.3e} > {bound:.3e})")
+        frames = batches * samples * d.batch_size * n_tgt
+        out[task] = dict(launches=launches["pallas"]["oproj"],
+                         forwards=forwards, seconds=secs,
+                         frames_per_s={a: frames / s for a, s in
+                                       secs.items()},
+                         PSNR=res["pallas"]["PSNR"],
+                         PSNR_plain=res["xla"]["PSNR"],
+                         SSIM=res["pallas"]["SSIM"], worst=worst)
+        print(f"evaluate {task:4s} bf16 best-of-{samples}, {batches} "
+              f"batches: kernel {secs['pallas']:.2f} s "
+              f"({out[task]['frames_per_s']['pallas']:.1f} predicted "
+              f"frames/s), plain {secs['xla']:.2f} s; "
+              f"{launches['pallas']['oproj']} kernel launches = {forwards} "
+              f"forwards x 32; PSNR {res['pallas']['PSNR']:.4f} vs "
+              f"{res['xla']['PSNR']:.4f} dB (|d| {worst['PSNR']:.2e}, per-t "
+              f"max {worst['PSNR_per_t']:.2e}), SSIM "
+              f"{res['pallas']['SSIM']:.5f} (|d| {worst['SSIM']:.2e}), "
+              f"MSE {res['pallas']['MSE']:.3f} (|d| {worst['MSE']:.2e})")
+    return out
+
+
+def _clis(torch, ta, cfg_path, work):
+    from npvp_tpu_torch.eval import evaluate as ev
+    from npvp_tpu_torch.train import inference as inf
+
+    # the saved config names phase 8's checkpoints and exec_mode pallas
+    t0 = time.perf_counter()
+    reset_launches(ta)
+    ev.main(["--config_path", str(cfg_path), "--task", "VFI",
+             "--num_samples", "2", "--max_batches", "1", "--gif_dir",
+             f"{work}/eval_gifs", "--out", f"{work}/eval.json"])
+    check(ta.LAUNCHES["oproj"] == 2 * 32, f"evaluate CLI: {ta.LAUNCHES}")
+    check(json.loads(Path(f"{work}/eval.json").read_text())["task"] == "VFI",
+          "evaluate CLI wrote no result")
+    gifs = sorted(Path(f"{work}/eval_gifs").glob("*.gif"))
+    check(len(gifs) == 4, f"evaluate CLI GIFs: {gifs}")
+    for gif in gifs:
+        check_gif(gif)
+    reset_launches(ta)
+    inf.main(["--config_path", str(cfg_path), "--batches", "1",
+              "--gif_dir", f"{work}/inf_gifs"])
+    check(ta.LAUNCHES["oproj"] == 5 * 32, f"inference CLI: {ta.LAUNCHES}")
+    for task in ("VFP", "VPE", "VFI", "VRC", "HVRC"):
+        check_gif(Path(f"{work}/inf_gifs/{task}.gif"))
+    print(f"evaluate and inference CLIs on phase 8's checkpoints: "
+          f"{time.perf_counter() - t0:.1f} s, 4 + 5 GIFs decoded, the "
+          "kernel served both")
+
+
+def _flagship_window_stream_fvd(torch, ta, np):
+    from npvp_tpu_torch.core.config import flagship_config
+    from npvp_tpu_torch.eval.fvd import FVD
+    from npvp_tpu_torch.models.inference import VideoPredictor
+
+    cfg = flagship_config()
+    p, d = cfg.Predictor, cfg.Dataset
+    vp = VideoPredictor.from_random_init(cfg, torch.bfloat16, seed=0,
+                                         exec_mode="pallas", device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    shape = (64, 10, d.img_size, d.img_size, d.img_channels)
+    past = torch.rand(shape, generator=gen, device="cuda") * 2 - 1
+    eps = [torch.randn((64, p.max_H, p.max_W, p.embed_dim), generator=gen,
+                       device="cuda") for _ in range(4)]
+    out = {}
+
+    # sliding windows: 10 observed -> 20 predicted with max_T 20
+    vp.vfp(past, 20, eps=eps[:2])  # warm-up
+    reset_launches(ta)
+    pred = vp.vfp(past, 20, eps=eps[:2])
+    torch.cuda.synchronize()
+    check(ta.LAUNCHES == {"oproj": 64, "attn": 0},
+          f"vfp_windowed: launches {ta.LAUNCHES}, not 2 windows x 32")
+    check(tuple(pred.shape) == (64, 20) + shape[2:]
+          and bool(torch.isfinite(pred.float()).all()), "vfp_windowed output")
+    ms = statistics.median(time_forwards(torch, lambda: vp.vfp(
+        past, 20, eps=eps[:2]), 3) for _ in range(3))
+    out["vfp_windowed"] = dict(ms=ms, frames_per_s=64 * 20 / (ms / 1e3))
+    print(f"vfp_windowed flagship, batch 64, 10 -> 20 (2 windows), bf16, "
+          f"kernel: {ms:.2f} ms, {64 * 20 / (ms / 1e3):.1f} predicted "
+          "frames/s, 64 launches")
+
+    # a stream of 4 batches against 4 frozen-task calls, the same noise
+    stream = torch.rand((4,) + shape, generator=gen, device="cuda") * 2 - 1
+    to, tp = np.arange(10), np.arange(10, 20)
+    frozen = vp.freeze_task(to, tp)
+    vp.predict_stream(stream, to, tp, eps=eps)  # warm-up
+    reset_launches(ta)
+    got = vp.predict_stream(stream, to, tp, eps=eps)
+    torch.cuda.synchronize()
+    check(ta.LAUNCHES == {"oproj": 4 * 32, "attn": 0},
+          f"predict_stream: launches {ta.LAUNCHES}")
+    want = torch.stack([frozen(stream[s], eps=eps[s]) for s in range(4)])
+    diff = (got.float() - want.float()).abs().max().item()
+    print(f"predict_stream S=4 vs 4 freeze_task calls, same eps: max|d| "
+          f"{diff!r} (atol 0)")
+    check(diff == 0.0, "predict_stream departs from freeze_task")
+    ms_stream = statistics.median(time_forwards(
+        torch, lambda: vp.predict_stream(stream, to, tp, eps=eps), 2)
+        for _ in range(3)) / 4
+
+    def frozen_all():
+        for s in range(4):
+            frozen(stream[s], eps=eps[s])
+
+    ms_frozen = statistics.median(time_forwards(torch, frozen_all, 2)
+                                  for _ in range(3)) / 4
+    out["stream"] = dict(ms_per_batch=ms_stream,
+                         frozen_ms_per_batch=ms_frozen)
+    print(f"predict_stream {ms_stream:.2f} ms per batch, freeze_task "
+          f"{ms_frozen:.2f} ms per batch (batch 64, VFP 10 -> 10, bf16)")
+
+    # I3D features of 16 predicted and 16 real clips (random weights)
+    fvd = FVD(torch.bfloat16, device="cuda").init_random(0)
+    fake, real = (got[0, :16].float() + 1) / 2, (stream[0, :16] + 1) / 2
+    fvd.features(fake)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ff, fr = fvd.features(fake), fvd.features(real)
+    i3d_ms = (time.perf_counter() - t0) * 1e3 / 2
+    check(ff.shape == fr.shape == (16, 400) and np.isfinite(ff).all()
+          and np.isfinite(fr).all(), "I3D features")
+    out["i3d_ms_per_16_clips"] = i3d_ms
+    print(f"I3D features, 16 clips of 10 frames at 224x224, bf16, random "
+          f"weights: {i3d_ms:.1f} ms per 16 clips (host copy included)")
+    return out
+
+
+def phase_chain(torch, ta):
+    """Stage 2 over phase 7's AE, evaluation and serving with the kernel."""
+    import numpy as np
+
+    cfg = _stage2_over_ae(torch, ta, np)
+    evals = _evaluate_arms(torch, ta, np, cfg)
+    cfg_path = Path(WORK["dir"]) / "stage2.json"
+    cfg.save(cfg_path)
+    _clis(torch, ta, cfg_path, WORK["dir"])
+    serving = _flagship_window_stream_fvd(torch, ta, np)
+    result = {"evaluate": evals, **serving}
+    print("chain " + json.dumps(result))
     return result
 
 
@@ -565,11 +933,13 @@ def main(argv) -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases", help="comma-separated phase numbers "
-                        "(1-6) for a short check; the default runs all and "
+                        "(1-8) for a short check; the default runs all and "
                         "prints the record")
     args = parser.parse_args(argv)
     picked = (None if args.phases is None
               else {int(p) for p in args.phases.split(",")})
+    if picked is not None and 8 in picked:
+        picked.add(7)  # phase 8 trains stage 2 over phase 7's AE
     import torch
 
     if not torch.cuda.is_available():
@@ -599,20 +969,26 @@ def main(argv) -> int:
               ("golden", phase_golden),
               ("flagship serving", phase_flagship),
               ("per-call timing", phase_per_call),
-              ("stage-2 training", phase_training)]
+              ("stage-2 training", phase_training),
+              ("stage-1 training", phase_stage1),
+              ("chain: stage 2, evaluation, serving", phase_chain)]
     if picked is not None:
         phases = [ph for i, ph in enumerate(phases, 1) if i in picked]
-    for name, fn in phases:
-        print(f"\n== {name}", flush=True)
-        t0 = time.perf_counter()
-        try:
-            results[name] = fn(torch, ta)
-        except Exception:
-            traceback.print_exc(file=sys.stdout)
-            print(f"-- {name}: FAILED", flush=True)
-            return 1
-        print(f"-- {name}: ok ({time.perf_counter() - t0:.1f} s)",
-              flush=True)
+    WORK["dir"] = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        for name, fn in phases:
+            print(f"\n== {name}", flush=True)
+            t0 = time.perf_counter()
+            try:
+                results[name] = fn(torch, ta)
+            except Exception:
+                traceback.print_exc(file=sys.stdout)
+                print(f"-- {name}: FAILED", flush=True)
+                return 1
+            print(f"-- {name}: ok ({time.perf_counter() - t0:.1f} s)",
+                  flush=True)
+    finally:
+        shutil.rmtree(WORK["dir"], ignore_errors=True)
     print(f"\nchip_smoke: all phases ok in "
           f"{time.perf_counter() - t_start:.1f} s")
     if picked is not None:
@@ -644,6 +1020,11 @@ def main(argv) -> int:
                                                "library_ms", "bound_ms")},
                 "times": "per stage-2 eval step (SMMNIST, batch 8, T = 15):"
                          " the sum over its 40 calls, bf16"},
+            "evaluate": {
+                task: {k: v[k] for k in ("launches", "forwards")}
+                for task, v in results["chain: stage 2, evaluation, "
+                                       "serving"]["evaluate"].items()}
+            if v == "oproj" else None,
             "times": "per flagship forward: the sum over its 32 calls, bf16",
             "per_call": acc["per_call"]})
     print(json.dumps({"kernels": kernels}))

@@ -20,8 +20,8 @@ def _check_bounds(name: str, values, max_value: float) -> None:
     if vals.size and (vals.min() < 0.0 or vals.max() > max_value):
         raise ValueError(
             f"{name} coordinates must lie in [0, {max_value}]; got "
-            f"[{vals.min()}, {vals.max()}]. Times beyond max_T need the "
-            "sliding-window protocol, which is not ported yet.")
+            f"[{vals.min()}, {vals.max()}]. Future prediction beyond max_T "
+            "takes the sliding-window protocol (VideoPredictor.vfp).")
 
 
 def coordinate_grid(t_list, h_list, w_list, max_T: float, max_H: float,

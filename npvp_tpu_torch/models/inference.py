@@ -12,8 +12,10 @@ A task is only a choice of observed/target time lists:
 The pipeline is AE encode → NP predictor → AE decode, run eagerly under
 ``torch.inference_mode``. NPVP-S draws its latent noise from a
 ``torch.Generator`` (seeded 0 unless the caller passes one) or takes it as
-``eps``. Not ported yet: ``shard``, ``export_task``/``serve_exported``,
-``predict_stream`` and the sliding-window ``vfp_windowed``.
+``eps``; the windows of ``vfp_windowed`` and the batches of
+``predict_stream`` draw from one generator in their order, or take ``eps``
+as a sequence with one entry each. Not ported yet: ``shard`` and
+``export_task``/``serve_exported``.
 """
 
 from __future__ import annotations
@@ -28,7 +30,8 @@ from npvp_tpu_torch.core.device import resolve_device
 from npvp_tpu_torch.models.coords import coordinate_grid, spatial_index_lists
 from npvp_tpu_torch.models.predictor import NPPredictor, build_predictor
 from npvp_tpu_torch.nn.resnet_ae import FrameAutoEncoder, build_ae
-from npvp_tpu_torch.tools.weights import load_flax, load_weights, random_init
+from npvp_tpu_torch.tools.weights import (load_flax, load_trained,
+                                          load_weights, random_init)
 
 
 class VideoPredictor:
@@ -68,6 +71,24 @@ class VideoPredictor:
         return cls(cfg, ae, predictor, device)
 
     @classmethod
+    def from_checkpoints(cls, cfg: Config, ae_ckpt_dir, predictor_ckpt_dir,
+                         dtype=torch.bfloat16,
+                         exec_mode: Optional[str] = None,
+                         device="cuda") -> "VideoPredictor":
+        """From the port's trainers' checkpoints: each a
+        ``CheckpointManager`` directory (its latest step) or one ``.pt``
+        file (an AE may also be a weights archive). A predictor path ending
+        in ``.npz`` is a weights archive holding both halves
+        (:meth:`from_weights`)."""
+        if str(predictor_ckpt_dir).endswith(".npz"):
+            return cls.from_weights(cfg, predictor_ckpt_dir, dtype,
+                                    exec_mode, device)
+        ae, predictor = cls._build(cfg, dtype, exec_mode)
+        load_trained(ae, ae_ckpt_dir, "ae")
+        load_trained(predictor, predictor_ckpt_dir, "pred")
+        return cls(cfg, ae, predictor, device)
+
+    @classmethod
     def from_weights(cls, cfg: Config, npz_path, dtype=torch.bfloat16,
                      exec_mode: Optional[str] = None,
                      device="cuda") -> "VideoPredictor":
@@ -87,6 +108,11 @@ class VideoPredictor:
         return torch.as_tensor(frames, dtype=torch.float32,
                                device=self.device)
 
+    def _generator(self, generator):
+        """``generator``, or a fresh one seeded 0."""
+        return generator if generator is not None else (
+            torch.Generator(device=self.device).manual_seed(0))
+
     def _eps(self, n: int, eps, generator):
         """Latent noise for NPVP-S: ``eps`` as given, else drawn from
         ``generator`` (a fresh one seeded 0 by default)."""
@@ -96,10 +122,9 @@ class VideoPredictor:
             return torch.as_tensor(eps, dtype=torch.float32,
                                    device=self.device)
         p = self.cfg.Predictor
-        gen = generator if generator is not None else (
-            torch.Generator(device=self.device).manual_seed(0))
         return torch.randn((n, p.max_H, p.max_W, p.embed_dim),
-                           generator=gen, device=self.device)
+                           generator=self._generator(generator),
+                           device=self.device)
 
     def _run(self, frames, oc, tc, eps, generator):
         with torch.inference_mode():
@@ -138,16 +163,43 @@ class VideoPredictor:
 
     # -- the five tasks ------------------------------------------------------
     def vfp(self, past_frames, num_future: int, eps=None, generator=None):
-        """Future prediction within the trained time range (horizons beyond
-        ``max_T`` need the sliding-window protocol, not ported yet)."""
+        """Future prediction; horizons beyond ``max_T`` take the
+        sliding-window protocol (:meth:`vfp_windowed`, whose ``eps`` is one
+        entry per window)."""
         P = past_frames.shape[1]
         if P + num_future > self.cfg.Predictor.max_T:
-            raise NotImplementedError(
-                f"VFP horizon {P}+{num_future} exceeds max_T="
-                f"{self.cfg.Predictor.max_T}; the sliding-window protocol "
-                "is not ported yet")
+            return self.vfp_windowed(past_frames, num_future, eps, generator)
         return self.predict(past_frames, np.arange(P),
                             np.arange(P, P + num_future), eps, generator)
+
+    def vfp_windowed(self, past_frames, num_future: int, eps=None,
+                     generator: Optional[torch.Generator] = None,
+                     chunk: Optional[int] = None) -> torch.Tensor:
+        """Sliding-window future prediction for horizons beyond ``max_T``.
+
+        Each window observes the last P frames at times re-based to
+        0..P-1 and predicts the next ``chunk`` frames (by default the most
+        that fit, ``max_T − P``); its predictions roll into the next
+        window's context. NPVP-S draws each window's noise from the one
+        ``generator`` in window order, or takes ``eps[w]`` for window w."""
+        P = past_frames.shape[1]
+        max_chunk = self.cfg.Predictor.max_T - P
+        chunk = max_chunk if chunk is None else chunk
+        if not 0 < chunk <= max_chunk:
+            raise ValueError(f"window horizon {chunk} outside (0, "
+                             f"{max_chunk}] for context {P} with "
+                             f"max_T={self.cfg.Predictor.max_T}")
+        gen = self._generator(generator)
+        oc, tc = self._coords(np.arange(P)), self._coords(
+            np.arange(P, P + chunk))
+        ctx = self._frames(past_frames)
+        preds = []
+        for w in range(-(-num_future // chunk)):
+            out = self._run(ctx, oc, tc, None if eps is None else eps[w],
+                            gen)
+            preds.append(out)
+            ctx = torch.cat([ctx, out.float()], dim=1)[:, -P:]
+        return torch.cat(preds, dim=1)[:, :num_future]
 
     def vpe(self, future_frames, num_past: int, eps=None, generator=None):
         F = future_frames.shape[1]
@@ -179,3 +231,28 @@ class VideoPredictor:
         with torch.inference_mode():
             rec, _ = self.ae(self._frames(frames))
             return rec
+
+    def predict_stream(self, frames_stream, to_list: Sequence[float],
+                       tp_list: Sequence[float], eps=None,
+                       generator: Optional[torch.Generator] = None
+                       ) -> torch.Tensor:
+        """Serve a stream of batches: (S, N, To, H, W, C) observed at
+        ``to_list`` → (S, N, TP, H, W, C) at ``tp_list``. The stream moves
+        to the device once, the coordinate grids are built once, and each
+        batch's prediction is written into one preallocated output, so no
+        batch waits on a host copy. NPVP-S draws each batch's noise from
+        the one ``generator`` in stream order, or takes ``eps[s]``."""
+        if frames_stream.shape[2] != len(to_list):
+            raise ValueError(f"{frames_stream.shape[2]} frames observed at "
+                             f"{len(to_list)} times")
+        oc, tc = self._coords(to_list), self._coords(tp_list)
+        gen = self._generator(generator)
+        stream = self._frames(frames_stream)
+        out = None
+        for s in range(stream.shape[0]):
+            pred = self._run(stream[s], oc, tc,
+                             None if eps is None else eps[s], gen)
+            if out is None:
+                out = pred.new_empty((stream.shape[0],) + pred.shape)
+            out[s] = pred
+        return out

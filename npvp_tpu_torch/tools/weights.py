@@ -9,6 +9,7 @@ flax path; the layouts are the inverse of
 ``npvp_tpu/tools/torch_converter.py``:
 
 - ``nn.Conv2d``: kernel HWIO → weight OIHW (depthwise kernels too);
+- ``nn.Conv3d`` (the I3D of FVD): kernel DHWIO → weight OIDHW;
 - ``nn.ConvTranspose2d``: kernel (kh, kw, O, I) → weight (I, O, kh, kw);
 - ``nn.Linear``: Dense (I, O), DenseGeneral (C, H, D) / (H, D, C) and 1×1
   conv (1, 1, I, O) kernels → weight (O, I); bias flattened;
@@ -27,6 +28,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from npvp_tpu_torch.core.checkpoint import load_model_state
 from npvp_tpu_torch.nn.layers import (BatchNorm, LayerNormHWC,
                                       TokenLayerNorm)
 from npvp_tpu_torch.nn.neural_process import NRMLP
@@ -71,6 +73,10 @@ def _leaves(module: nn.Module, params: dict, stats: dict):
     parameters and buffers."""
     if isinstance(module, (nn.Conv2d, nn.ConvTranspose2d)):
         yield "weight", "kernel", params["kernel"].transpose(3, 2, 0, 1)
+        if module.bias is not None:
+            yield "bias", "bias", params["bias"]
+    elif isinstance(module, nn.Conv3d):
+        yield "weight", "kernel", params["kernel"].transpose(4, 3, 0, 1, 2)
         if module.bias is not None:
             yield "bias", "bias", params["bias"]
     elif isinstance(module, nn.Linear):
@@ -155,7 +161,8 @@ def random_init(module: nn.Module, seed: int = 0) -> nn.Module:
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for mod in module.modules():
-            if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+            if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d, nn.Conv3d,
+                                nn.Linear)):
                 w = mod.weight
                 w.copy_(torch.randn(w.shape, generator=gen)
                         / np.sqrt(w[0].numel()))
@@ -172,4 +179,15 @@ def random_init(module: nn.Module, seed: int = 0) -> nn.Module:
                             * mod.scale)
             if isinstance(mod, NonLocalAttention2D):
                 mod.gamma.zero_()
+    return module
+
+
+def load_trained(module: nn.Module, src, half: str) -> nn.Module:
+    """Load trained weights into ``module`` in place: a weights archive
+    (``.npz``, its ``half`` "ae" or "pred") through the flax bridge, else a
+    port checkpoint directory (its latest step) or file."""
+    if str(src).endswith(".npz"):
+        ae_vars, pred_vars, _ = load_weights(src)
+        return load_flax(module, ae_vars if half == "ae" else pred_vars)
+    module.load_state_dict(load_model_state(src))
     return module

@@ -20,14 +20,20 @@ from ``fold_in(base_rng, s)``; ``Env.steps_per_dispatch`` > 1 still runs the
 steps one by one, which JAX's scan over a chunk of steps equals by
 construction.
 
-Not ported yet: the GAN steps, the GIF visual callback, the profiler hooks,
-FSDP and the device mesh.
+Every ``Predictor.log_per_epochs`` epochs, under ``Env.visual_callback``,
+one validation clip and its prediction (eval mode, so the kernel serves it
+under ``exec_mode: pallas``) go into ``<tensorboard_save_dir>/epoch_<e>.gif``.
+
+Not ported yet: the GAN steps, the profiler hooks, FSDP and the device mesh
+(the trainer names such ``Env`` fields when a config sets them).
 """
 
 from __future__ import annotations
 
+import copy
 import sys
 import tempfile
+import traceback
 from pathlib import Path
 from typing import Callable, NamedTuple, Optional
 
@@ -35,7 +41,8 @@ import torch
 
 from npvp_tpu_torch.core.checkpoint import CheckpointManager, load_model_state
 from npvp_tpu_torch.core.config import Config
-from npvp_tpu_torch.core.metrics import AverageMeters, MetricsLogger
+from npvp_tpu_torch.core.metrics import (AverageMeters, MetricsLogger,
+                                         save_clip_gifs)
 from npvp_tpu_torch.core.optim import (is_decoder_param,
                                        make_predictor_optimizer,
                                        predictor_schedule)
@@ -49,21 +56,18 @@ from npvp_tpu_torch.models.predictor import NPPredictor, build_predictor
 from npvp_tpu_torch.nn.layers import Rng
 from npvp_tpu_torch.nn.losses import kl_divergence, l1_loss
 from npvp_tpu_torch.nn.resnet_ae import FrameAutoEncoder, build_ae
-from npvp_tpu_torch.tools.weights import load_flax, load_weights, random_init
+from npvp_tpu_torch.tools.weights import load_trained, random_init
 from npvp_tpu_torch.train.common import (build_argparser, compute_dtype,
-                                         load_cli_config, setup)
+                                         load_cli_config, restore_state,
+                                         setup)
 
 
 def load_frozen_ae(cfg: Config, dtype, device) -> FrameAutoEncoder:
     """The stage-1 AE from ``Predictor.resume_AE_ckpt`` (a weights archive
     ``.npz`` through the flax bridge, else a port checkpoint directory or
     file), in eval mode, its parameters frozen."""
-    ae = build_ae(cfg, dtype)
-    src = str(cfg.Predictor.resume_AE_ckpt)
-    if src.endswith(".npz"):
-        load_flax(ae, load_weights(src)[0])
-    else:
-        ae.load_state_dict(load_model_state(src))
+    ae = load_trained(build_ae(cfg, dtype), cfg.Predictor.resume_AE_ckpt,
+                      "ae")
     return ae.to(device).eval().requires_grad_(False)
 
 
@@ -193,8 +197,21 @@ def train(cfg: Config, max_steps: Optional[int] = None, sprites=None,
     train_loader, val_loader = dm.train_loader(mode), dm.val_loader(mode)
     state = init_predictor_state(cfg, predictor, dm.len_train_loader or 1)
     if p.init_det_ckpt_for_vae:
+        src = str(p.init_det_ckpt_for_vae)
+        if src.endswith(".npz"):
+            # an NPVP-D weights archive: its tree fits a deterministic
+            # predictor, whose state dict then fills the shared entries
+            det_cfg = copy.deepcopy(cfg)
+            det_cfg.Predictor.stochastic = False
+            det_state = load_trained(build_predictor(det_cfg), src,
+                                     "pred").state_dict()
+        else:
+            det_state = load_model_state(src)
+        # parameters only: the running statistics keep their init, as JAX
+        # merges ``params`` alone
+        params = dict(predictor.named_parameters())
         predictor.load_state_dict(merge_det_init(
-            load_model_state(p.init_det_ckpt_for_vae),
+            {k: v for k, v in det_state.items() if k in params},
             predictor.state_dict()))
     print(f"Predictor parameters: {param_count(predictor) / 1e6:.2f}M | "
           f"mode={mode} | device={device}")
@@ -204,17 +221,7 @@ def train(cfg: Config, max_steps: Optional[int] = None, sprites=None,
                              monitor="loss_val", mode="min")
     start_epoch = p.start_epoch
     if p.resume_ckpt:
-        if str(p.resume_ckpt).endswith(".npz"):
-            # a weights archive: parameters, statistics and step, fresh
-            # optimizer moments (the archive holds none)
-            _, pred_vars, meta = load_weights(p.resume_ckpt)
-            load_flax(predictor, pred_vars)
-            state.step = int(meta.get("pred_step", 0))
-        else:
-            path = Path(p.resume_ckpt)
-            saved = (CheckpointManager(path).load() if path.is_dir()
-                     else torch.load(path, map_location="cpu"))
-            state.load_state_dict(saved)
+        restore_state(state, p.resume_ckpt, "pred")
         start_epoch = state.step // max(1, dm.len_train_loader or 1)
 
     logger = MetricsLogger(p.tensorboard_save_dir)
@@ -252,11 +259,47 @@ def train(cfg: Config, max_steps: Optional[int] = None, sprites=None,
                     or epoch == p.epochs - 1 or stopped):
                 ckpt.save(state.step, state,
                           metrics={"loss_val": scalars.get("loss_val", 0.0)})
+            if (cfg.Env.visual_callback
+                    and epoch % max(1, p.log_per_epochs) == 0):
+                try:
+                    visual_callback(cfg, predictor, ae, steps.place(
+                        next(iter(val_loader))), mode, dm.renorm, epoch)
+                except Exception:  # a picture must never end a run
+                    print("visual callback failed:")
+                    traceback.print_exc(file=sys.stdout)
             if stopped:
                 break
     finally:
         logger.close()
     return state
+
+
+def visual_callback(cfg: Config, predictor: NPPredictor,
+                    ae: FrameAutoEncoder, batch, mode: str, renorm,
+                    epoch: int) -> Path:
+    """GT | prediction GIF of the first clip of ``batch`` (on the device),
+    the predictor in eval mode with its latent drawn from ``Rng(epoch)``;
+    → the GIF's path."""
+    p = cfg.Predictor
+    predictor.eval()
+    with torch.no_grad():
+        if mode == "rand_context":
+            coords = full_coordinate_volume(p.max_T, p.max_H, p.max_W,
+                                            batch["clip"].device)
+            out = predictor(ae.encode(batch["clip"]), coords, coords,
+                            obs_mask=batch["obs_mask"],
+                            tgt_mask=batch["tgt_mask"], rng=Rng(epoch))
+            gt = batch["clip"][0]
+        else:
+            oc, tc, _, _ = build_coords(cfg, device=batch["past"].device)
+            out = predictor(ae.encode(batch["past"]), oc, tc,
+                            rng=Rng(epoch))
+            gt = torch.cat([batch["past"][0], batch["future"][0]])
+        pred = ae.decode(out.pred_features)[0]
+    path = Path(p.tensorboard_save_dir) / f"epoch_{epoch}.gif"
+    save_clip_gifs(path, {"gt": gt.float().cpu().numpy(),
+                          "pred": pred.float().cpu().numpy()}, renorm=renorm)
+    return path
 
 
 def write_random_ae(cfg: Config, directory) -> Path:

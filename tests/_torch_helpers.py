@@ -67,3 +67,41 @@ def port_config(jax_cfg):
     from npvp_tpu_torch.core.config import from_dict
 
     return from_dict(dataclasses.asdict(jax_cfg)).validate()
+
+
+def to_flax(module, template: dict) -> dict:
+    """The inverse of ``npvp_tpu_torch.tools.weights.load_flax``: the
+    module's parameters and running statistics as a flax variable tree of
+    numpy arrays, shaped as ``template`` (a tree of the same module)."""
+    import copy
+
+    from torch import nn
+
+    from npvp_tpu_torch.nn.layers import (BatchNorm, LayerNormHWC,
+                                          TokenLayerNorm)
+
+    out = copy.deepcopy(template)
+    np_ = lambda t: t.detach().cpu().numpy().astype(np.float32)  # noqa: E731
+    for name, mod in module.named_modules():
+        if not list(mod.parameters(recurse=False)):
+            continue
+        params, stats = out["params"], out.get("batch_stats", {})
+        for part in (name.split(".") if name else []):
+            params, stats = params[part], stats.get(part, {})
+        if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d)):
+            params["kernel"] = np_(mod.weight).transpose(2, 3, 1, 0)
+            if mod.bias is not None:
+                params["bias"] = np_(mod.bias)
+        elif isinstance(mod, nn.Linear):
+            params["kernel"] = np_(mod.weight).T.reshape(
+                params["kernel"].shape)
+            params["bias"] = np_(mod.bias).reshape(params["bias"].shape)
+        elif isinstance(mod, (BatchNorm, TokenLayerNorm, LayerNormHWC)):
+            params["scale"], params["bias"] = np_(mod.weight), np_(mod.bias)
+            if isinstance(mod, BatchNorm):
+                stats["mean"] = np_(mod.running_mean)
+                stats["var"] = np_(mod.running_var)
+        else:
+            for leaf, value in mod.named_parameters(recurse=False):
+                params[leaf] = np_(value).reshape(np.shape(params[leaf]))
+    return out

@@ -94,8 +94,15 @@ def test_tasks_freeze_and_reconstruct():
     assert vp.vrc(frames, [0, 2, 5, 7], [1, 3]).shape == (2, 2, 32, 32, 1)
     assert vp.hvrc(frames, [0, 2, 4, 6], [0.5, 6.75]).shape == (
         2, 2, 32, 32, 1)
-    with pytest.raises(NotImplementedError, match="sliding-window"):
-        vp.vfp(frames, 5)
+    # beyond max_T (4 + 5 > 8): the sliding windows, out-of-range chunks
+    # refused
+    long = vp.vfp(frames, 5, generator=gen())
+    assert long.shape == (2, 5, 32, 32, 1)
+    np.testing.assert_array_equal(
+        long.numpy(), vp.vfp_windowed(frames, 5, generator=gen()).numpy())
+    for chunk in (0, 5):
+        with pytest.raises(ValueError, match="window horizon"):
+            vp.vfp_windowed(frames, 5, chunk=chunk)
     with pytest.raises(ValueError, match="frozen task"):
         frozen(frames[:, :3])
     rec = vp.reconstruct(frames)
