@@ -11,7 +11,9 @@ picks some, for a short check), each printing its own lines:
    kernel's build time, ptxas' registers and spills, and the dynamic shared
    memory of one block of each variant;
 2. kernel against its plain PyTorch twin at the flagship call-site shapes,
-   a ragged site count, Tq ≠ Tk and a query row whose keys are all masked,
+   the stage-2 eval steps' shapes (SMMNIST T = 15; Cityscapes Tq 10 over
+   Tk 2 and T 2; KITTI T 4/5 at 1024 sites; KTH rand-context T = 20), a
+   ragged site count, Tq ≠ Tk and a query row whose keys are all masked,
    fp32 (tol 1e-4) and bf16 (tol 2e-2), both variants (fused output
    projection, attention only);
 3. the golden fixture: the port in fp32 with the kernel launched against
@@ -24,7 +26,8 @@ picks some, for a short check), each printing its own lines:
 5. per call site and variant: kernel, plain twin and library (SDPA, plus
    F.linear when fused) times beside the least time the card could take
    (bytes or FLOP bound), kernel ÷ bound, and whether the kernel beats the
-   library call;
+   library call, summed over a flagship forward, a SMMNIST eval step and a
+   Cityscapes VFP eval step;
 6. stage-2 training at full width (SMMNIST Unified NPVP-S, bf16, random
    frozen AE weights from a seed written to a checkpoint): 20 train steps
    and one validation pass of 20 eval steps through
@@ -40,8 +43,10 @@ picks some, for a short check), each printing its own lines:
    validation pass through ``npvp_tpu_torch.train.stage1_ae.train``, then
    its ``--smoke`` CLI: ms per train and eval step, peak memory, finite and
    falling L1, a checkpoint round trip whose next step is bit-identical, the
-   epoch's GIF (header and frame count), and a profiler breakdown of one
-   train step;
+   epoch's GIF (header and frame count), a profiler breakdown of one
+   train step, and the 20 steps again with the clips fetched on the
+   loader's worker processes (the pool forced; SMMNIST's cheap first batch
+   otherwise keeps them in the producer thread);
 8. the chain on phase 7's AE checkpoint directory: stage-2 training of
    SMMNIST Unified NPVP-S at full width (4 steps, its GIF), then
    ``evaluate`` of the five tasks, best-of-2 over 2 test batches in bf16
@@ -52,7 +57,23 @@ picks some, for a short check), each printing its own lines:
    flagship shapes (batch 64, 10 → 20 with max_T 20: two windows),
    ``predict_stream`` of 4 batches against 4 ``freeze_task`` calls with the
    same noise (equal), and I3D features of predicted and real clips
-   (random weights from a seed). ``--phases 8`` runs phase 7 first.
+   (random weights from a seed). ``--phases 8`` runs phase 7 first;
+9. the frame-folder data layer and the new models: seeded PNG trees in the
+   KTH, Cityscapes, KITTI and BAIR layouts (every filter type present, every
+   file read back bit-equal) and a MovingMNIST npz; the loader alone on
+   KTH (batch 8 × 20 frames) and Cityscapes (batch 8 × 12) at 1 worker and
+   at the config's count (equal batches; ms per batch; decode ms per frame
+   split into inflate and unfilter); KTH Unified NPVP-S as its YAML stands
+   (the flagship) trained 10 steps and validated from PNG folders through
+   ``stage2_predictor.train`` (step ms, clips/s, peak memory, 40 launches per
+   eval step and none per train step, the eval losses against the plain
+   path, the wait for each batch), then again with the frames decoded in
+   the loader's producer thread (num_workers 1); the Cityscapes AE (128×128×3, ngf 32,
+   4 downsamplings, 3 residual blocks) trained 10 steps, VFP NPVP-S over it
+   4 steps, then ``evaluate`` VFP 2 → 28 windowed with the kernel and the
+   plain path (PSNR within 0.01 dB, launches = forwards × 32) and the call
+   shapes of its eval step; one KITTI (batch 16, resized) and one BAIR and
+   MovingMNIST batch through ``DataModule``.
 
 Any failure exits non-zero; without CUDA it exits non-zero at once. The last
 three lines are the kernels' JSON record, the card's name and power limit,
@@ -97,7 +118,27 @@ EVAL_SITES = [("window_T15", 480, 16, 16, None, 16),
               ("temporal_enc_T15", 512, 15, 15, "obs_encoder", 8),
               ("temporal_dec_T15", 512, 15, 15, "tgt_self", 8),
               ("cross_T15", 512, 15, 15, "obs_cross", 8)]
-OBS15 = [1, 0, 1, 1, 0, 0, 1, 0, 1, 0, 0, 1, 0, 1, 0]
+# the stage-2 eval step of the Cityscapes VFP NPVP-S config (batch 8, 2
+# observed and 10 target frames, both codings): windows of the observed and
+# target codings and of the decoder, the encoder's temporal attention over 2
+# and over 10 frames, the decoder's over 10, cross-attention 10 over 2
+CITY_EVAL_SITES = [("window_obs_T2", 64, 16, 16, None, 4),
+                   ("window_tgt_T10", 320, 16, 16, None, 12),
+                   ("temporal_enc_T2", 512, 2, 2, "hide_last", 4),
+                   ("temporal_enc_T10", 512, 10, 10, "hide_last", 4),
+                   ("temporal_dec_T10", 512, 10, 10, None, 8),
+                   ("cross_10x2", 512, 10, 2, None, 8)]
+# the KITTI (batch 16, 4 → 5) and KTH rand-context (batch 8, T = 20) eval
+# steps' temporal shapes, held against the twin in phase 2
+NEW_TEMPORAL = [("kitti_enc_T4", 1024, 4, 4, "hide_last"),
+                ("kitti_cross_5x4", 1024, 5, 4, None),
+                ("kitti_dec_T5", 1024, 5, 5, None),
+                ("kth_enc_T20", 512, 20, 20, "obs_encoder"),
+                ("kth_dec_T20", 512, 20, 20, "tgt_self"),
+                ("kth_cross_T20", 512, 20, 20, "obs_cross"),
+                ("city_window_obs", 64, 16, 16, None),
+                ("city_last_window_8x2", 512, 8, 2, None)]
+OBS20 = [1, 0, 1, 1, 0, 0, 1, 0, 1, 0, 0, 1, 0, 1, 0, 1, 1, 0, 0, 1]
 EXTRA = [("ragged", 4099, 10, 10, "hide_last"),
          ("tq_ne_tk", 1000, 10, 7, "random"),
          ("masked_row", 4096, 10, 10, "masked_row")]
@@ -152,7 +193,7 @@ def make_inputs(torch, B, Tq, Tk, mask, dtype, fuse, seed=0):
         from npvp_tpu_torch.kernels.temporal_attention import allow_to_bias
         from npvp_tpu_torch.nn.vidhrformer import encoder_temporal_allow
 
-        obs = torch.tensor(OBS15, dtype=torch.bool, device=dev)
+        obs = torch.tensor(OBS20[:Tq], dtype=torch.bool, device=dev)
         if mask == "hide_last":
             allow = encoder_temporal_allow(Tq, device=dev)
         elif mask == "obs_encoder":
@@ -176,8 +217,8 @@ def make_inputs(torch, B, Tq, Tk, mask, dtype, fuse, seed=0):
 def phase_kernel_vs_plain(torch, ta):
     """Returns the largest bf16 error of each variant."""
     worst = {"oproj": 0.0, "attn": 0.0}
-    cases = [(n, B, Tq, Tk, m) for n, B, Tq, Tk, m, _ in SITES + EVAL_SITES
-             ] + EXTRA
+    cases = [(n, B, Tq, Tk, m) for n, B, Tq, Tk, m, _ in
+             SITES + EVAL_SITES + CITY_EVAL_SITES[1:]] + EXTRA + NEW_TEMPORAL
     for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
         for variant in ("oproj", "attn"):
             for name, B, Tq, Tk, mask in cases:
@@ -394,7 +435,8 @@ def phase_per_call(torch, ta):
 
     dtype = torch.bfloat16
     totals = {}
-    for path, sites in (("forward", SITES), ("eval_step", EVAL_SITES)):
+    for path, sites in (("forward", SITES), ("eval_step", EVAL_SITES),
+                        ("eval_step_cityscapes", CITY_EVAL_SITES)):
         totals[path] = {v: dict(ms=0.0, plain_ms=0.0, library_ms=0.0,
                                 bound_ms=0.0, by={"bytes": 0.0, "ops": 0.0},
                                 per_call=[])
@@ -459,7 +501,6 @@ def phase_per_call(torch, ta):
 def phase_training(torch, ta):
     """Stage-2 training of SMMNIST Unified NPVP-S at full width."""
     import tempfile
-    import types
 
     import numpy as np
 
@@ -541,21 +582,7 @@ def phase_training(torch, ta):
         steps = s2.make_steps(cfg, ae, "rand_context", dev)
         dm = DataModule(cfg)
         batch = steps.place(next(iter(dm.val_loader("rand_context"))))
-        plain = build_predictor(cfg, dtype, exec_mode="xla").to(dev)
-        plain.load_state_dict(state.model.state_dict())
-        got = steps.eval(state, batch, Rng(123))
-        want = steps.eval(types.SimpleNamespace(model=plain), batch,
-                          Rng(123))
-        # each metric within 1e-3 of its own size (some are near 1e-2, so
-        # the 2e-2 outer bound alone could not fail on them)
-        diffs = {k: abs(float(got[k]) - float(want[k])) for k in want}
-        bound = {k: min(2e-2, 1e-3 * abs(float(want[k])) + 1e-5)
-                 for k in want}
-        print("eval losses, kernel vs plain: " + ", ".join(
-            f"{k} {float(got[k]):.6f} vs {float(want[k]):.6f} "
-            f"(|d| {diffs[k]:.2e}, tol {bound[k]:.2e})" for k in want))
-        far = [k for k in want if not diffs[k] <= bound[k]]
-        check(not far, f"kernel eval departs from plain in {far}")
+        eval_kernel_vs_plain(torch, cfg, state, steps, batch)
 
         # checkpoint round trip: the next step from a restored state
         train_batch = steps.place(next(iter(dm.train_loader("rand_context"))))
@@ -584,6 +611,32 @@ def phase_training(torch, ta):
               "train_steps": len(tr), "eval_steps": len(ev)}
     print("training " + json.dumps(result))
     return result
+
+
+def eval_kernel_vs_plain(torch, cfg, state, steps, batch):
+    """One eval step with the kernel against the plain path from the same
+    state: each loss within 1e-3 of its own size plus 1e-5, never more than
+    2e-2 (some are near 1e-2, so the outer bound alone could not fail on
+    them)."""
+    import types
+
+    from npvp_tpu_torch.models.predictor import build_predictor
+    from npvp_tpu_torch.nn.layers import Rng
+    from npvp_tpu_torch.train.common import compute_dtype
+
+    dev = next(state.model.parameters()).device
+    plain = build_predictor(cfg, compute_dtype(cfg), exec_mode="xla").to(dev)
+    plain.load_state_dict(state.model.state_dict())
+    got = steps.eval(state, batch, Rng(123))
+    want = steps.eval(types.SimpleNamespace(model=plain), batch, Rng(123))
+    diffs = {k: abs(float(got[k]) - float(want[k])) for k in want}
+    bound = {k: min(2e-2, 1e-3 * abs(float(want[k])) + 1e-5) for k in want}
+    print("eval losses, kernel vs plain: " + ", ".join(
+        f"{k} {float(got[k]):.6f} vs {float(want[k]):.6f} "
+        f"(|d| {diffs[k]:.2e}, tol {bound[k]:.2e})" for k in want))
+    far = [k for k in want if not diffs[k] <= bound[k]]
+    check(not far, f"kernel eval departs from plain in {far}")
+    return max(diffs.values())
 
 
 def reset_launches(ta):
@@ -692,10 +745,29 @@ def phase_stage1(torch, ta):
     check_gif(Path(work) / "ae_cli_log" / "epoch_0.gif", frames)
     print(f"stage1_ae --smoke CLI: 2 steps, a checkpoint and a GIF in "
           f"{cli_s:.1f} s")
+    # the same 20 steps with the clips fetched on the loader's worker
+    # processes: SMMNIST's first batch is cheap, so the loader renders in
+    # its producer thread unless the pool is forced
+    from npvp_tpu_torch.data import loader
+
+    cfg.AE.ckpt_save_dir = f"{work}/ae_pool"
+    cfg.AE.tensorboard_save_dir = f"{work}/ae_pool_log"
+    threshold, loader.POOL_MIN_FETCH_MS = loader.POOL_MIN_FETCH_MS, 0.0
+    try:
+        _, rec, _, pool_peak, pool_wall = _timed_train(
+            torch, ta, np, s1.train, cfg,
+            {"train": "L1_loss_train", "eval": "L1_loss_valid"})
+    finally:
+        loader.POOL_MIN_FETCH_MS = threshold
+    on_pool = _summary(d, rec, pool_peak, pool_wall,
+                       f"stage-1 train() with the clips fetched on "
+                       f"{min(d.num_workers, d.batch_size)} worker "
+                       "processes (the pool forced)")
     result = {"train_ms": train_ms, "eval_ms": eval_ms,
               "clips_per_s": d.batch_size / (train_ms / 1e3),
               "peak_gib": peak, "first_l1": losses[0], "last_l1": losses[-1],
-              "train_steps": len(tr), "eval_steps": len(ev)}
+              "train_steps": len(tr), "eval_steps": len(ev),
+              "fetch_on_pool": on_pool}
     print("stage1 " + json.dumps(result))
     return result
 
@@ -928,12 +1000,444 @@ def phase_chain(torch, ta):
     return result
 
 
+# -- phase 9: the frame-folder data layer and the new models ----------------
+
+def smoke_config(name, overrides=()):
+    """``npvp_tpu/configs/config_<name>.yaml`` as it stands, with
+    ``overrides`` (run directories, data directories, step counts)."""
+    from npvp_tpu_torch.core.config import load_config
+
+    return load_config(CONFIGS / f"config_{name}.yaml", list(overrides))
+
+
+def _build_and_read_back(builder, kw):
+    """One job of :func:`_build_trees`, in a worker process: write a tree
+    with ``npvp_tpu_torch.data.synthetic.<builder>(**kw)``, then read every
+    PNG back (one wavefront a folder) and hold it bit-equal to the array
+    written; → (files, filter types seen)."""
+    import numpy as np
+
+    from npvp_tpu_torch.data import png
+    from npvp_tpu_torch.data import synthetic
+
+    written = getattr(synthetic, builder)(**kw)
+    folders, kinds = {}, set()
+    for path, arr in written.items():
+        if path.suffix == ".png":
+            folders.setdefault(path.parent, []).append((path, arr))
+    for folder, items in folders.items():
+        items.sort(key=lambda kv: kv[0])
+        got = png.read_pngs([p for p, _ in items], "RGB")
+        check(np.array_equal(got, np.stack([a for _, a in items])),
+              f"{folder}: a PNG does not read back as written")
+        kinds |= set(png.inflate(png.read_chunks(items[0][0].read_bytes()))[
+            :, 0].tolist())
+    return len(written), kinds
+
+
+def _build_trees(root):
+    """Seeded trees in each dataset's layout, written and read back on 8
+    worker processes; → {dataset: number of files}."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    kth = ("boxing", "handclapping", "handwaving", "walking_no_empty")
+    jobs = [("KTH", "kth_tree", dict(root=root / "KTH", persons=(p,),
+                                     actions=kth, frames=100, seed=p))
+            for p in (1, 2, 3, 5, 17)]  # train 1-3, val 5, test 17
+    # Cityscapes: train 16 sequences a city, val 4, test 4, 30 frames each
+    jobs += [("Cityscapes", "cityscapes_tree", dict(
+        root=root / "Cityscapes", sequences={split: n}, frames=30,
+        seed=10 + i, cities=cities)) for i, (split, n, cities) in enumerate(
+            (("train", 16, ("aachen",)), ("train", 16, ("bochum",)),
+             ("val", 4, ("aachen", "bochum")),
+             ("test", 4, ("aachen", "bochum"))))]
+    jobs += [("KITTI", "kitti_tree", dict(root=root / "KITTI", drives=16,
+                                          frames=18, seed=20)),
+             ("BAIR", "bair_tree", dict(root=root / "BAIR",
+                                        examples={"train": 10, "test": 4},
+                                        frames=30, seed=21)),
+             ("MovingMNIST", "moving_mnist_npz", dict(
+                 root=root / "MovingMNIST", frames=20, clips=16, seed=22))]
+    t0 = time.perf_counter()
+    counts, kinds = {}, set()
+    with ProcessPoolExecutor(8, multiprocessing.get_context("spawn")) as pool:
+        done = pool.map(_build_and_read_back, [b for _, b, _ in jobs],
+                        [kw for _, _, kw in jobs])
+        for (name, _, _), (files, used) in zip(jobs, done):
+            counts[name] = counts.get(name, 0) + files
+            kinds |= used
+    check(kinds == {0, 1, 2, 3, 4}, f"filter types present: {kinds}")
+    print(f"trees: {counts} files written, and every PNG read back "
+          f"bit-equal, in {time.perf_counter() - t0:.1f} s on 8 processes; "
+          f"filter types {sorted(kinds)}")
+    return counts
+
+
+def _decode_split(np, paths):
+    """Per-frame ms of read + inflate and of unfilter (one wavefront per
+    clip) over clips ``paths``."""
+    from npvp_tpu_torch.data import png
+
+    inflate_s = unfilter_s = 0.0
+    frames = 0
+    for clip in paths:
+        t0 = time.perf_counter()
+        chunks = [png.read_chunks(Path(p).read_bytes(), str(p)) for p in clip]
+        rows = np.stack([png.inflate(c) for c in chunks])
+        t1 = time.perf_counter()
+        png.unfilter(rows, chunks[0].header.bpp)
+        unfilter_s += time.perf_counter() - t1
+        inflate_s += t1 - t0
+        frames += len(clip)
+    return inflate_s * 1e3 / frames, unfilter_s * 1e3 / frames
+
+
+def _loader_alone(np, cfg, mode, clips, batches=9):
+    """The train loader on its own at 1 worker and at the config's count:
+    ms a batch over ``batches`` batches after the first (which starts the
+    worker pool), equal batches, and the decode split over ``clips``."""
+    from npvp_tpu_torch.data.loader import DataModule
+
+    d = cfg.Dataset
+    configured, out, seen, first = d.num_workers, {}, {}, {}
+    for workers in (1, configured):
+        d.num_workers = workers
+        loader = DataModule(cfg).train_loader(mode)
+        it = iter(loader)
+        t0 = time.perf_counter()
+        seen[workers] = [next(it)]
+        first[workers] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        seen[workers] += [next(it) for _ in range(batches)]
+        out[workers] = (time.perf_counter() - t0) * 1e3 / batches
+        it.close()
+        loader.close()
+    for a, b in zip(seen[1], seen[configured]):
+        check(all(np.array_equal(a[k], b[k]) for k in a),
+              f"{d.name}: batches differ between 1 and {configured} workers")
+    inflate_ms, unfilter_ms = _decode_split(np, clips)
+    frames = d.batch_size * (d.num_past_frames + d.num_future_frames)
+    print(f"{d.name} loader alone, batch {d.batch_size} x "
+          f"{d.num_past_frames + d.num_future_frames} frames ({frames} "
+          f"PNGs): {out[1]:.1f} ms a batch at 1 worker (the producer "
+          f"thread), {out[configured]:.1f} ms at num_workers {configured} "
+          f"({min(configured, d.batch_size)} processes), over {batches} "
+          f"batches after the first (the first {first[1]:.0f} and "
+          f"{first[configured]:.0f} ms, pool start included); batches "
+          f"equal; decode "
+          f"{inflate_ms:.3f} ms a frame to read and inflate, "
+          f"{unfilter_ms:.3f} ms to unfilter")
+    return {"ms_per_batch": {str(k): v for k, v in out.items()},
+            "first_batch_ms": {str(k): v for k, v in first.items()},
+            "inflate_ms_per_frame": inflate_ms,
+            "unfilter_ms_per_frame": unfilter_ms, "frames_per_batch": frames}
+
+
+def _timed_train(torch, ta, np, train_fn, cfg, loss_key):
+    """Run ``train_fn(cfg, on_step=...)``; → (state, per-step records,
+    launches, peak GiB, wall s). Each record holds ms (host clock, ended by
+    a synchronize), loss, kernel launches and the wait for the batch."""
+    record = {"train": [], "eval": []}
+    clock = [0.0, 0]
+
+    def on_step(kind, index, metrics):
+        torch.cuda.synchronize()
+        now, launched = time.perf_counter(), sum(ta.LAUNCHES.values())
+        loss = float(metrics[loss_key[kind]])
+        record[kind].append(dict(
+            ms=(now - clock[0]) * 1e3, loss=loss,
+            launches=launched - clock[1],
+            wait_ms=float(metrics.get("data_wait_ms", 0.0))))
+        check(np.isfinite(loss), f"{kind} step {index}: loss {loss}")
+        clock[:] = [time.perf_counter(), sum(ta.LAUNCHES.values())]
+
+    reset_launches(ta)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = clock[0] = time.perf_counter()
+    state = train_fn(cfg, on_step=on_step)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (state, record, dict(ta.LAUNCHES),
+            torch.cuda.max_memory_allocated() / 2 ** 30, wall)
+
+
+def _summary(d, record, peak, wall, what):
+    tr, ev = record["train"], record["eval"]
+    train_ms = statistics.median(r["ms"] for r in tr[3:] or tr)
+    eval_ms = statistics.median(r["ms"] for r in ev[1:] or ev)
+    waits = [r["wait_ms"] for r in tr[1:]]
+    out = {"train_ms": train_ms, "eval_ms": eval_ms,
+           "clips_per_s": d.batch_size / (train_ms / 1e3), "peak_gib": peak,
+           "train_steps": len(tr), "eval_steps": len(ev),
+           "wait_ms_median": statistics.median(waits) if waits else 0.0,
+           "wait_ms_max": max(waits) if waits else 0.0,
+           "first_wait_ms": tr[0]["wait_ms"],
+           "losses": [r["loss"] for r in tr]}
+    print(f"{what}: {len(tr)} train + {len(ev)} eval steps in {wall:.1f} s "
+          f"(set-up included); train step {train_ms:.2f} ms median after 3 "
+          f"warm-up steps ({out['clips_per_s']:.1f} clips/s), first three "
+          f"{[round(r['ms'], 1) for r in tr[:3]]} ms; eval step "
+          f"{eval_ms:.2f} ms; peak memory {peak:.2f} GiB; wait for the "
+          f"batch {out['wait_ms_median']:.2f} ms median, "
+          f"{out['wait_ms_max']:.2f} max after the first "
+          f"({out['first_wait_ms']:.1f}); losses "
+          f"{[round(r['loss'], 4) for r in tr]}")
+    return out
+
+
+def _kth_flagship(torch, ta, np, root, work):
+    """KTH Unified NPVP-S as its YAML stands, from PNG folders: 10 train
+    steps and the validation pass through ``stage2_predictor.train``."""
+    from npvp_tpu_torch.data.loader import DataModule
+    from npvp_tpu_torch.nn.layers import Rng
+    from npvp_tpu_torch.train import stage2_predictor as s2
+
+    cfg = smoke_config("KTH_Unified_NPVP-S", [
+        f"Dataset.dir={root}/KTH", "Predictor.exec_mode=pallas",
+        "Predictor.epochs=1", f"Predictor.ckpt_save_dir={work}/kth",
+        f"Predictor.tensorboard_save_dir={work}/kth_log",
+        "Dataset.dev_set_size=80"])
+    p, d = cfg.Predictor, cfg.Dataset
+    cfg.Predictor.resume_AE_ckpt = str(s2.write_random_ae(cfg, work))
+    print(f"KTH Unified NPVP-S (embed {p.embed_dim}, {p.transformer_layers} "
+          f"+ {p.evt_former_num_layers} layers, max_T {p.max_T}, "
+          f"rand_context), batch {d.batch_size}, {cfg.Env.compute_dtype}, "
+          f"exec_mode {p.exec_mode}, {d.num_workers} loader workers, "
+          f"frames 160x120 RGB PNG -> 64x64 grey")
+    state, record, launches, peak, wall = _timed_train(
+        torch, ta, np, s2.train, cfg, {"train": "loss", "eval": "loss_val"})
+    tr, ev = record["train"], record["eval"]
+    check(len(tr) == 10 and state.step == 10,
+          f"{len(tr)} train steps, state.step {state.step}")
+    check(len(ev) >= 1, "no eval step ran")
+    check(all(r["launches"] == 0 for r in tr),
+          "a train step launched the kernel")
+    check(all(r["launches"] == 40 for r in ev),
+          f"eval steps launched {[r['launches'] for r in ev]}, not 40")
+    check(launches == {"oproj": 40 * len(ev) + 32, "attn": 0},
+          f"launches {launches} (40 per eval step and 32 for the GIF)")
+    check_gif(Path(work) / "kth_log" / "epoch_0.gif", p.max_T)
+    out = _summary(d, record, peak, wall, "KTH train()")
+    print(f"kernel launches: {[r['launches'] for r in tr]} per train step, "
+          f"{[r['launches'] for r in ev]} per eval step; {launches}")
+    saved = dict(ta.LAUNCHES)
+    dev = next(state.model.parameters()).device
+    ae = s2.load_frozen_ae(cfg, s2.compute_dtype(cfg), dev)
+    steps = s2.make_steps(cfg, ae, "rand_context", dev)
+    dm = DataModule(cfg)
+    batch = steps.place(next(iter(dm.val_loader("rand_context"))))
+    out["eval_max_abs_diff"] = eval_kernel_vs_plain(torch, cfg, state, steps,
+                                                    batch)
+    train_batch = steps.place(next(iter(dm.train_loader("rand_context"))))
+    profile(torch, lambda: steps.train(state, train_batch, Rng(8)),
+            "KTH stage-2 train step")
+    ta.LAUNCHES.update(saved)
+    out["launches"] = launches
+
+    # the same run with the frames decoded in the producer thread, beside
+    # the training loop (num_workers 1), in this call and on this card
+    cfg.Dataset.num_workers = 1
+    cfg.Predictor.ckpt_save_dir = f"{work}/kth_thread"
+    cfg.Predictor.tensorboard_save_dir = f"{work}/kth_thread_log"
+    _, record, _, peak, wall = _timed_train(
+        torch, ta, np, s2.train, cfg, {"train": "loss", "eval": "loss_val"})
+    out["decode_in_thread"] = _summary(
+        d, record, peak, wall, "KTH train() with decode in the producer "
+        "thread (num_workers 1)")
+    ta.LAUNCHES.update(saved)
+    return out
+
+
+def _cityscapes_chain(torch, ta, np, root, work):
+    """The Cityscapes AE, VFP NPVP-S over it, and ``evaluate`` 2 → 28."""
+    import collections
+
+    from npvp_tpu_torch.data.loader import DataModule
+    from npvp_tpu_torch.eval.evaluate import evaluate
+    from npvp_tpu_torch.nn.layers import Rng
+    from npvp_tpu_torch.train import stage1_ae as s1
+    from npvp_tpu_torch.train import stage2_predictor as s2
+
+    out = {}
+    cfg1 = smoke_config("Cityscapes_Autoencoder", [
+        f"Dataset.dir={root}/Cityscapes", "AE.epochs=1",
+        f"AE.ckpt_save_dir={work}/city_ae",
+        f"AE.tensorboard_save_dir={work}/city_ae_log",
+        "Dataset.dev_set_size=80"])
+    a, d = cfg1.AE, cfg1.Dataset
+    print(f"Cityscapes AE (ngf {a.ngf}, {a.n_downsampling} downsamplings, "
+          f"{a.num_res_blocks} res blocks, {d.img_size}x{d.img_size}x"
+          f"{d.img_channels}), clips of "
+          f"{d.num_past_frames + d.num_future_frames}, batch {d.batch_size}, "
+          f"{cfg1.Env.compute_dtype}")
+    state, record, launches, peak, wall = _timed_train(
+        torch, ta, np, s1.train, cfg1,
+        {"train": "L1_loss_train", "eval": "L1_loss_valid"})
+    check(state.step == 10 and launches == {"oproj": 0, "attn": 0},
+          f"AE: step {state.step}, launches {launches}")
+    out["ae"] = _summary(d, record, peak, wall, "Cityscapes AE train()")
+
+    cfg2 = smoke_config("Cityscapes_VFP_NPVP-S", [
+        f"Dataset.dir={root}/Cityscapes", "Predictor.exec_mode=pallas",
+        "Predictor.epochs=1", f"Predictor.resume_AE_ckpt={work}/city_ae",
+        f"Predictor.ckpt_save_dir={work}/city_pred",
+        f"Predictor.tensorboard_save_dir={work}/city_pred_log",
+        "Dataset.dev_set_size=32"])
+    p, d = cfg2.Predictor, cfg2.Dataset
+    print(f"Cityscapes VFP NPVP-S (embed {p.embed_dim}, pairs "
+          f"{d.num_past_frames} -> {d.num_future_frames}, max_T {p.max_T}) "
+          f"over that AE")
+    state, record, launches, peak, wall = _timed_train(
+        torch, ta, np, s2.train, cfg2,
+        {"train": "loss", "eval": "loss_val"})
+    ev = record["eval"]
+    check(state.step == 4 and all(r["launches"] == 0 for r in
+                                  record["train"]),
+          f"VFP: step {state.step}, launches per train step")
+    check(all(r["launches"] == 40 for r in ev) and launches == {
+        "oproj": 40 * len(ev) + 32, "attn": 0}, f"VFP launches {launches}")
+    out["vfp"] = _summary(d, record, peak, wall, "Cityscapes VFP train()")
+    out["vfp"]["launches"] = launches
+
+    saved = dict(ta.LAUNCHES)
+    dev = next(state.model.parameters()).device
+    ae = s2.load_frozen_ae(cfg2, s2.compute_dtype(cfg2), dev)
+    steps = s2.make_steps(cfg2, ae, "pairs", dev)
+    batch = steps.place(next(iter(DataModule(cfg2).val_loader())))
+    shapes = collections.Counter()
+    launch = ta.temporal_attention
+
+    def spy(q, k, v, bias=None, **kw):
+        shapes[(q.shape[0], q.shape[1], k.shape[1], bias is not None)] += 1
+        return launch(q, k, v, bias, **kw)
+
+    ta.temporal_attention = spy
+    try:
+        out["vfp"]["eval_max_abs_diff"] = eval_kernel_vs_plain(
+            torch, cfg2, state, steps, batch)
+    finally:
+        ta.temporal_attention = launch
+    declared = collections.Counter()
+    for _, B, Tq, Tk, mask, calls in CITY_EVAL_SITES:
+        declared[(B, Tq, Tk, mask is not None)] += calls
+    print(f"eval-step kernel calls (B, Tq, Tk, masked): {dict(shapes)}")
+    check(shapes == declared, f"the eval step's calls {dict(shapes)} are "
+          f"not CITY_EVAL_SITES {dict(declared)}")
+    train_batch = steps.place(next(iter(DataModule(cfg2).train_loader())))
+    profile(torch, lambda: steps.train(state, train_batch, Rng(8)),
+            "Cityscapes stage-2 train step")
+    ta.LAUNCHES.update(saved)
+
+    # evaluate VFP 2 -> 28 past max_T 12: three windows a batch
+    P, F = d.test_num_past_frames, d.test_num_future_frames
+    windows = -(-F // (p.max_T - P))
+    kw = dict(task="VFP", max_batches=1, num_samples=1,
+              dtype=torch.bfloat16, device="cuda")
+    evaluate(cfg2, exec_mode="pallas", **kw)  # warm-up
+    res, secs, launched = {}, {}, {}
+    for arm in ("pallas", "xla"):
+        reset_launches(ta)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res[arm] = evaluate(cfg2, exec_mode=arm, **kw)
+        torch.cuda.synchronize()
+        secs[arm] = time.perf_counter() - t0
+        launched[arm] = dict(ta.LAUNCHES)
+    gap = abs(res["pallas"]["PSNR"] - res["xla"]["PSNR"])
+    per_t = np.asarray(res["pallas"]["PSNR_per_t"])
+    check(per_t.shape == (F,) and np.isfinite(per_t).all(),
+          f"PSNR per target: {per_t}")
+    check(launched["pallas"] == {"oproj": 32 * windows, "attn": 0},
+          f"evaluate launches {launched['pallas']}, not {windows} windows "
+          "x 32")
+    check(launched["xla"] == {"oproj": 0, "attn": 0},
+          "the plain arm launched the kernel")
+    check(gap <= 0.01, f"PSNR kernel {res['pallas']['PSNR']} vs plain "
+          f"{res['xla']['PSNR']}")
+    frames = d.batch_size * F
+    print(f"evaluate VFP {P} -> {F} (windowed, {windows} windows), batch "
+          f"{d.batch_size}, bf16: kernel {secs['pallas']:.2f} s "
+          f"({frames / secs['pallas']:.1f} predicted frames/s), plain "
+          f"{secs['xla']:.2f} s; {launched['pallas']['oproj']} launches; "
+          f"PSNR {res['pallas']['PSNR']:.4f} vs {res['xla']['PSNR']:.4f} dB "
+          f"(|d| {gap:.2e}), SSIM {res['pallas']['SSIM']:.5f} over 3 "
+          "channels")
+    out["evaluate"] = {"windows": windows,
+                       "launches": launched["pallas"]["oproj"],
+                       "seconds": secs, "PSNR": res["pallas"]["PSNR"],
+                       "PSNR_plain": res["xla"]["PSNR"], "PSNR_gap": gap}
+    return out
+
+
+def _one_batch_each(np, root):
+    """One train batch of KITTI (batch 16, resized), BAIR and MovingMNIST
+    through ``DataModule``: shapes and normalised ranges."""
+    from npvp_tpu_torch.data.loader import DataModule
+    from npvp_tpu_torch.data.transforms import DATASET_STATS
+
+    out = {}
+    for name, yaml, extra in (
+            ("KITTI", "KITTI_VFP_NPVP-S", []),
+            ("BAIR", "BAIR_VFP_NPVP-S", []),
+            ("MovingMNIST", "SMMNIST_VFP_NPVP-S",
+             ["Dataset.name=MovingMNIST"])):
+        cfg = smoke_config(yaml, [f"Dataset.dir={root}/{name}"] + extra)
+        d = cfg.Dataset
+        t0 = time.perf_counter()
+        batch = next(iter(DataModule(cfg).train_loader()))
+        ms = (time.perf_counter() - t0) * 1e3
+        S, C = d.img_size, d.img_channels
+        want = {"past": (d.batch_size, d.num_past_frames, S, S, C),
+                "future": (d.batch_size, d.num_future_frames, S, S, C)}
+        stats = DATASET_STATS[d.name]
+        lo = (0 - np.asarray(stats["mean"])) / np.asarray(stats["std"])
+        hi = (1 - np.asarray(stats["mean"])) / np.asarray(stats["std"])
+        for key, shape in want.items():
+            x = batch[key]
+            check(x.shape == shape and x.dtype == np.float32,
+                  f"{name} {key}: {x.shape} {x.dtype}, not {shape}")
+            check(bool(np.isfinite(x).all()
+                       and (x >= lo - 1e-5).all() and (x <= hi + 1e-5).all()),
+                  f"{name} {key}: values outside [{lo}, {hi}]")
+        print(f"{name}: one train batch past {batch['past'].shape}, future "
+              f"{batch['future'].shape}, values in [{batch['past'].min():.3f},"
+              f" {batch['past'].max():.3f}] within the normalised range, "
+              f"{ms:.0f} ms")
+        out[name] = {"ms": ms, "past": list(batch["past"].shape)}
+    return out
+
+
+def phase_data_models(torch, ta):
+    """The frame-folder data layer and the new models on the card."""
+    import numpy as np
+
+    from npvp_tpu_torch.data import datasets as D
+
+    work = Path(WORK["dir"])
+    root = work / "data"
+    out = {"trees": _build_trees(root)}
+    kth = smoke_config("KTH_Unified_NPVP-S", [f"Dataset.dir={root}/KTH"])
+    city = smoke_config("Cityscapes_Autoencoder",
+                        [f"Dataset.dir={root}/Cityscapes"])
+    out["loader"] = {
+        "KTH": _loader_alone(np, kth, "rand_context",
+                             D.kth_clips(root / "KTH", 20, [1])[:4]),
+        "Cityscapes": _loader_alone(np, city, "pairs", D.cityscapes_clips(
+            root / "Cityscapes" / "train", 12)[:4])}
+    out["kth"] = _kth_flagship(torch, ta, np, root, work)
+    out["cityscapes"] = _cityscapes_chain(torch, ta, np, root, work)
+    out["one_batch"] = _one_batch_each(np, root)
+    print("data_models " + json.dumps(out))
+    return out
+
+
 def main(argv) -> int:
     import argparse
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases", help="comma-separated phase numbers "
-                        "(1-8) for a short check; the default runs all and "
+                        "(1-9) for a short check; the default runs all and "
                         "prints the record")
     args = parser.parse_args(argv)
     picked = (None if args.phases is None
@@ -971,7 +1475,8 @@ def main(argv) -> int:
               ("per-call timing", phase_per_call),
               ("stage-2 training", phase_training),
               ("stage-1 training", phase_stage1),
-              ("chain: stage 2, evaluation, serving", phase_chain)]
+              ("chain: stage 2, evaluation, serving", phase_chain),
+              ("data layer and new models", phase_data_models)]
     if picked is not None:
         phases = [ph for i, ph in enumerate(phases, 1) if i in picked]
     WORK["dir"] = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -998,7 +1503,9 @@ def main(argv) -> int:
     launches, _ = results["flagship serving"]
     per_forward = results["per-call timing"]["forward"]
     per_eval = results["per-call timing"]["eval_step"]
+    per_city = results["per-call timing"]["eval_step_cityscapes"]
     training = results["stage-2 training"]
+    new = results["data layer and new models"]
     replaces = {"oproj": "npvp_tpu/kernels/temporal_attention.py:136",
                 "attn": "npvp_tpu/kernels/temporal_attention.py:127"}
     run_of = {"oproj": "kernel_oproj", "attn": "kernel_attn"}
@@ -1025,6 +1532,18 @@ def main(argv) -> int:
                 for task, v in results["chain: stage 2, evaluation, "
                                        "serving"]["evaluate"].items()}
             if v == "oproj" else None,
+            "eval_step_cityscapes": {
+                **{k: per_city[v][k] for k in ("ms", "plain_ms",
+                                               "library_ms", "bound_ms")},
+                "times": "per Cityscapes VFP NPVP-S eval step (batch 8, "
+                         "2 -> 10): the sum over its 40 calls, bf16"},
+            "launches_phase9": {
+                "kth_train": new["kth"]["launches"][v],
+                "cityscapes_vfp_train": new["cityscapes"]["vfp"][
+                    "launches"][v],
+                "cityscapes_evaluate_2_to_28": (
+                    new["cityscapes"]["evaluate"]["launches"]
+                    if v == "oproj" else 0)},
             "times": "per flagship forward: the sum over its 32 calls, bf16",
             "per_call": acc["per_call"]})
     print(json.dumps({"kernels": kernels}))

@@ -87,7 +87,10 @@ class StochasticMovingMNIST:
     def __len__(self):
         return self._length
 
-    def __getitem__(self, idx: int) -> np.ndarray:
+    def __getitem__(self, idx: int,
+                    rng: Optional[np.random.Generator] = None) -> np.ndarray:
+        """Clip ``idx``; ``rng``, the loader's per-sample generator, only
+        reaches the transform (the clip's own draws follow ``idx``)."""
         r = np.random.default_rng(
             np.random.SeedSequence([idx, int(self._train)]))
         S, D = self.image_size, self.digit_size
@@ -133,5 +136,5 @@ class StochasticMovingMNIST:
                 sx += dx
         np.clip(clip, 0.0, 1.0, out=clip)
         if self.transform is not None:
-            clip = self.transform(clip)
+            clip = self.transform(clip, rng)
         return clip

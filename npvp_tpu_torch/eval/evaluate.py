@@ -181,9 +181,9 @@ def evaluate(cfg: Config, fvd_i3d_ckpt: Optional[str] = None,
         from npvp_tpu_torch.eval.fvd import FVD
 
         fvd = FVD.from_checkpoint(fvd_i3d_ckpt, device=vp.device)
-    loader = dm.test_loader()
-    if max_batches is not None:
-        loader = itertools.islice(iter(loader), max_batches)
+    test_loader = dm.test_loader()
+    loader = (test_loader if max_batches is None
+              else itertools.islice(iter(test_loader), max_batches))
     base_rng = Rng(cfg.Env.rand_seed)
     for bi, batch in enumerate(loader):
         scores, preds = [], []
@@ -222,6 +222,7 @@ def evaluate(cfg: Config, fvd_i3d_ckpt: Optional[str] = None,
             for name, v in per_clip(vp.reconstruct(gt), gt).items():
                 ceil_totals[name] += v.sum(axis=0)
         count += n
+    test_loader.close()
 
     results = {"task": task, "num_samples": num_samples}
     rows = [("", totals)] + [(tag, t) for tag, t, on in (

@@ -1,15 +1,19 @@
 """Shared trainer plumbing (port of ``npvp_tpu/train/common.py``): the CLI,
-seeding, and the device. ``Env.platform`` picks the torch device: "cpu"
-asks for the CPU, unset means the card ("cuda"), which raises without one.
-The trainers name, once at start, the JAX-only ``Env`` fields that a config
-sets and the port does not honour (mesh, FSDP, sequence parallelism,
-profiler, NaN checks, multi-step dispatch).
+seeding, the device, the profiler window and the NaN checks.
+``Env.platform`` picks the torch device: "cpu" asks for the CPU, unset
+means the card ("cuda"), which raises without one. ``Env.profile_dir``
+traces train steps 10-14 with ``torch.profiler`` (:class:`StepProfiler`);
+``Env.debug_nans`` turns on autograd's anomaly detection and makes every
+train step check its losses (:func:`check_finite`). The trainers name,
+once at start, the JAX-only ``Env`` fields that a config sets and the port
+does not honour (mesh, FSDP, sequence parallelism, multi-step dispatch).
 """
 
 from __future__ import annotations
 
 import argparse
 from pathlib import Path
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -60,19 +64,19 @@ def unhonoured_env_fields(cfg: Config) -> list:
     mesh = tuple(tuple(axis) for axis in e.mesh_shape)
     set_fields = {"fsdp": e.fsdp, "mesh_shape": mesh != (("data", -1),),
                   "sequence_parallel": e.sequence_parallel,
-                  "profile_dir": e.profile_dir is not None,
-                  "debug_nans": e.debug_nans,
                   "steps_per_dispatch": e.steps_per_dispatch > 1}
     return [name for name, on in set_fields.items() if on]
 
 
 def setup(cfg: Config) -> torch.device:
-    """Seed numpy and torch from ``Env.rand_seed``, name the set ``Env``
-    fields the port ignores, and return the device of ``Env.platform``."""
+    """Seed numpy and torch from ``Env.rand_seed``, set autograd's anomaly
+    detection to ``Env.debug_nans``, name the set ``Env`` fields the port
+    ignores, and return the device of ``Env.platform``."""
     ignored = unhonoured_env_fields(cfg)
     if ignored:
         print("Env fields set but not honoured by the PyTorch port: "
               + ", ".join(f"{k}={getattr(cfg.Env, k)!r}" for k in ignored))
+    torch.autograd.set_detect_anomaly(cfg.Env.debug_nans)
     np.random.seed(cfg.Env.rand_seed)
     torch.manual_seed(cfg.Env.rand_seed)
     return config_device(cfg)
@@ -93,3 +97,69 @@ def restore_state(state: TrainState, src, half: str) -> TrainState:
     else:
         state.load_state_dict(torch.load(src, map_location="cpu"))
     return state
+
+
+def check_finite(metrics: Dict[str, torch.Tensor], step: int) -> None:
+    """Raise ``FloatingPointError`` naming the first metric of train step
+    ``step`` that is NaN or infinite (``Env.debug_nans``; it waits for the
+    device)."""
+    for name, value in metrics.items():
+        value = torch.as_tensor(value).detach()
+        if not bool(torch.isfinite(value).all()):
+            raise FloatingPointError(
+                f"train step {step}: {name} = {float(value)} is not finite "
+                "(Env.debug_nans)")
+
+
+class StepProfiler:
+    """A ``torch.profiler`` trace of train steps ``start_step`` …
+    ``start_step + num_steps − 1`` into ``profile_dir`` (the JAX trainers'
+    ``jax.profiler`` window): the trainers call :meth:`maybe_start_profiler`
+    before every train step and :meth:`stop_profiler` at teardown, which
+    closes a window that a short run left open. The trace is written as
+    ``<profile_dir>/trace_steps_<first>-<last>.json``, the steps it holds
+    (Chrome trace format, readable by Perfetto)."""
+
+    def __init__(self, profile_dir: Optional[str], start_step: int = 10,
+                 num_steps: int = 5):
+        self.profile_dir = profile_dir
+        self.start_step, self.num_steps = start_step, num_steps
+        self._prof = None
+        self._steps = (0, 0)  # first and last step inside the open window
+
+    def maybe_start_profiler(self, step: int) -> Optional[str]:
+        """Open the window before step ``start_step``, close it before step
+        ``start_step + num_steps``; → "started", "stopped" or None."""
+        if self.profile_dir is None:
+            return None
+        if step == self.start_step and self._prof is None:
+            from torch.profiler import ProfilerActivity, profile
+
+            activities = [ProfilerActivity.CPU]
+            if torch.cuda.is_available():
+                activities.append(ProfilerActivity.CUDA)
+            self._prof = profile(activities=activities)
+            self._prof.__enter__()
+            self._steps = (step, step)
+            return "started"
+        if self._prof is None:
+            return None
+        if step == self.start_step + self.num_steps:
+            self.stop_profiler()
+            return "stopped"
+        self._steps = (self._steps[0], step)
+        return None
+
+    def stop_profiler(self) -> Optional[Path]:
+        """Close an open window and write its trace; → the trace's path."""
+        if self._prof is None:
+            return None
+        prof, self._prof = self._prof, None
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        prof.__exit__(None, None, None)
+        out = Path(self.profile_dir)
+        out.mkdir(parents=True, exist_ok=True)
+        path = out / "trace_steps_{}-{}.json".format(*self._steps)
+        prof.export_chrome_trace(str(path))
+        return path

@@ -16,6 +16,11 @@ checkpoint directory is what a stage-2 config names in
 directory (model, optimizer and step) or warm-starts from a weights archive
 (``.npz``: parameters, statistics and step, fresh optimizer moments).
 
+Each train step's metrics carry ``data_wait_ms``, the time the step waited
+for its batch on the loader's prefetch queue. ``Env.profile_dir`` traces
+steps 10-14; ``Env.debug_nans`` checks each step's L1 before its backward
+pass.
+
 JAX's ``Env.steps_per_dispatch`` scan is bit-identical to its per-step loop
 and is not ported: the steps run one by one.
 """
@@ -39,7 +44,8 @@ from npvp_tpu_torch.data.loader import DataModule
 from npvp_tpu_torch.nn.losses import l1_loss
 from npvp_tpu_torch.nn.resnet_ae import FrameAutoEncoder, build_ae
 from npvp_tpu_torch.tools.weights import random_init
-from npvp_tpu_torch.train.common import (build_argparser, compute_dtype,
+from npvp_tpu_torch.train.common import (StepProfiler, build_argparser,
+                                         check_finite, compute_dtype,
                                          load_cli_config, restore_state,
                                          setup)
 
@@ -60,7 +66,10 @@ class Steps(NamedTuple):
     place: Callable     # numpy batch -> tensors on the device
 
 
-def make_steps(device) -> Steps:
+def make_steps(device, debug_nans: bool = False) -> Steps:
+    """The steps on ``device``; ``debug_nans`` checks each train step's L1
+    before its backward pass."""
+
     def clips(batch):
         return torch.cat([batch["past"], batch["future"]], dim=1)
 
@@ -69,6 +78,8 @@ def make_steps(device) -> Steps:
         state.model.train()
         rec, _ = state.model(x)
         loss = l1_loss(rec, x)
+        if debug_nans:
+            check_finite({"L1_loss_train": loss}, state.step)
         loss.backward()
         state.apply_gradients()
         return {"L1_loss_train": loss.detach()}
@@ -110,14 +121,17 @@ def train(cfg: Config, max_steps: Optional[int] = None, sprites=None,
     ckpt = CheckpointManager(a.ckpt_save_dir, max_to_keep=5,
                              monitor="L1_loss_valid", mode="min")
     logger = MetricsLogger(a.tensorboard_save_dir)
-    steps = make_steps(device)
+    steps = make_steps(device, cfg.Env.debug_nans)
     cfg.save(f"{a.ckpt_save_dir}/config.json")
+    profiler = StepProfiler(cfg.Env.profile_dir)
     try:
         for epoch in range(start_epoch, a.epochs):
             train_loader.set_epoch(epoch)
             meters = AverageMeters()
             for batch in train_loader:
+                profiler.maybe_start_profiler(state.step)
                 metrics = steps.train(state, steps.place(batch))
+                metrics["data_wait_ms"] = train_loader.last_wait_ms
                 meters.update(metrics)
                 if on_step is not None:
                     on_step("train", state.step, metrics)
@@ -148,7 +162,10 @@ def train(cfg: Config, max_steps: Optional[int] = None, sprites=None,
             if max_steps is not None and state.step >= max_steps:
                 break
     finally:
+        profiler.stop_profiler()
         logger.close()
+        train_loader.close()
+        val_loader.close()
     return state
 
 

@@ -24,8 +24,13 @@ Every ``Predictor.log_per_epochs`` epochs, under ``Env.visual_callback``,
 one validation clip and its prediction (eval mode, so the kernel serves it
 under ``exec_mode: pallas``) go into ``<tensorboard_save_dir>/epoch_<e>.gif``.
 
-Not ported yet: the GAN steps, the profiler hooks, FSDP and the device mesh
-(the trainer names such ``Env`` fields when a config sets them).
+Each train step's metrics carry ``data_wait_ms``, the time the step waited
+for its batch on the loader's prefetch queue (logged per epoch as
+``data_wait_ms_train``). ``Env.profile_dir`` traces steps 10-14;
+``Env.debug_nans`` checks each step's losses before its backward pass.
+
+Not ported yet: the GAN steps, FSDP and the device mesh (the trainer names
+such ``Env`` fields when a config sets them).
 """
 
 from __future__ import annotations
@@ -57,7 +62,8 @@ from npvp_tpu_torch.nn.layers import Rng
 from npvp_tpu_torch.nn.losses import kl_divergence, l1_loss
 from npvp_tpu_torch.nn.resnet_ae import FrameAutoEncoder, build_ae
 from npvp_tpu_torch.tools.weights import load_trained, random_init
-from npvp_tpu_torch.train.common import (build_argparser, compute_dtype,
+from npvp_tpu_torch.train.common import (StepProfiler, build_argparser,
+                                         check_finite, compute_dtype,
                                          load_cli_config, restore_state,
                                          setup)
 
@@ -165,6 +171,8 @@ def make_steps(cfg: Config, ae: FrameAutoEncoder, mode: str,
     def train_step(state: TrainState, batch, rng: Rng):
         state.model.train()
         loss, metrics = forward(state.model, batch, rng)
+        if cfg.Env.debug_nans:
+            check_finite(metrics, state.step)
         loss.backward()
         state.apply_gradients()
         return {k: v.detach() for k, v in metrics.items()}
@@ -228,13 +236,16 @@ def train(cfg: Config, max_steps: Optional[int] = None, sprites=None,
     steps = make_steps(cfg, ae, mode, device)
     cfg.save(f"{p.ckpt_save_dir}/config.json")
     base_rng = Rng(cfg.Env.rand_seed)
+    profiler = StepProfiler(cfg.Env.profile_dir)
     try:
         for epoch in range(start_epoch, p.epochs):
             train_loader.set_epoch(epoch)
             meters = AverageMeters()
             for batch in train_loader:
+                profiler.maybe_start_profiler(state.step)
                 metrics = steps.train(state, steps.place(batch),
                                       base_rng.fold(state.step))
+                metrics["data_wait_ms"] = train_loader.last_wait_ms
                 meters.update(metrics)
                 if on_step is not None:
                     on_step("train", state.step, metrics)
@@ -270,7 +281,10 @@ def train(cfg: Config, max_steps: Optional[int] = None, sprites=None,
             if stopped:
                 break
     finally:
+        profiler.stop_profiler()
         logger.close()
+        train_loader.close()
+        val_loader.close()
     return state
 
 

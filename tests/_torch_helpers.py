@@ -1,5 +1,7 @@
 """Shared helpers of the PyTorch-port parity tests: random flax variables as
-numpy trees, and the tiny configuration the slice tests run."""
+numpy trees, the tiny configuration the slice tests run, and two datasets
+for the loader's worker processes (light to import): one whose item 5
+fails, one that sleeps in every fetch."""
 
 from __future__ import annotations
 
@@ -105,3 +107,33 @@ def to_flax(module, template: dict) -> dict:
             for leaf, value in mod.named_parameters(recurse=False):
                 params[leaf] = np_(value).reshape(np.shape(params[leaf]))
     return out
+
+
+class RaisingDataset:
+    """16 clips (4, 2, 2, 1) filled with their index; item 5 fails, as a
+    corrupt frame would."""
+
+    def __len__(self):
+        return 16
+
+    def __getitem__(self, i, rng=None):
+        if i == 5:
+            raise ValueError(f"frame {i}: bad CRC")
+        return np.full((4, 2, 2, 1), i, np.float32)
+
+
+class SleepyDataset:
+    """16 clips (4, 2, 2, 1) filled with their index, each fetch taking
+    ``delay`` seconds."""
+
+    def __init__(self, delay: float):
+        self.delay = delay
+
+    def __len__(self):
+        return 16
+
+    def __getitem__(self, i, rng=None):
+        import time
+
+        time.sleep(self.delay)
+        return np.full((4, 2, 2, 1), i, np.float32)

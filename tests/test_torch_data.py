@@ -123,5 +123,11 @@ def test_transforms():
     jtf, jrenorm = jbuild("SMMNIST", True)
     np.testing.assert_array_equal(tf(clip), jtf(clip, None))
     np.testing.assert_array_equal(renorm(clip), jrenorm(clip))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_transforms("KTH", True)
+    # the frame-folder datasets' pipelines are ported too (their parity is
+    # held in test_torch_datasets.py); an unknown name raises
+    kth = np.linspace(0, 1, 2 * 120 * 160, dtype=np.float32).reshape(
+        2, 120, 160, 1)
+    np.testing.assert_allclose(build_transforms("KTH", False)[0](kth),
+                               jbuild("KTH", False)[0](kth, None), atol=1e-6)
+    with pytest.raises(ValueError, match="unknown dataset"):
+        build_transforms("UCF101", True)

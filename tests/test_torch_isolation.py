@@ -1,6 +1,7 @@
 """The port stands alone: no module of npvp_tpu_torch and no line of
 chip_smoke.py imports jax, flax, optax, orbax or the JAX package
-npvp_tpu."""
+npvp_tpu, nor an image library (PIL, cv2): the card's hosts have none, and
+the CPU tests must hold the decoder that the card runs."""
 
 import ast
 from pathlib import Path
@@ -28,7 +29,7 @@ def _sources():
 def test_no_jax_import(path):
     bad = [m for m in _imports(path)
            if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
-                                  "npvp_tpu")]
+                                  "npvp_tpu", "PIL", "cv2")]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
     text = path.read_text()
     assert "import_module(" not in text and "__import__(" not in text

@@ -95,8 +95,9 @@ def _jax_model(cfg, seed):
     return ae, ae_vars, pred, pred_vars
 
 
-def _jax_steps(cfg, mode, ae, ae_vars, pred, pred_vars):
-    """The JAX trainer's two steps; → (metrics per step, final variables)."""
+def _jax_steps(cfg, mode, ae, ae_vars, pred, pred_vars, batches=None):
+    """The JAX trainer's steps over ``batches`` (default: this file's two);
+    → (metrics per step, final variables)."""
     from npvp_tpu.core.mesh import make_mesh
     from npvp_tpu.core.optim import make_predictor_optimizer
     from npvp_tpu.core.train_state import TrainState
@@ -112,7 +113,7 @@ def _jax_steps(cfg, mode, ae, ae_vars, pred, pred_vars):
     mesh = make_mesh(data=1, devices=jax.devices()[:1])
     train_step, _, place, *_ = make_steps(cfg, pred, ae, ae_vars, mesh, mode)
     metrics = []
-    for i, batch in enumerate(_batches(mode)):
+    for i, batch in enumerate(batches or _batches(mode)):
         state, m = train_step(state, place(batch), jax.random.key(i))
         metrics.append({k: float(v) for k, v in m.items()})
     return metrics, {"params": _np_tree(state.params),
