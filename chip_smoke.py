@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--phases 1,2]
 
 Builds the temporal-attention kernel from ``npvp_tpu_torch/kernels/csrc``
-with nvcc, then runs eight phases (all of them by default; ``--phases``
+with nvcc, then runs ten phases (all of them by default; ``--phases``
 picks some, for a short check), each printing its own lines:
 
 1. environment: the card's name and power limit, torch, CUDA, nvcc, the
@@ -73,7 +73,21 @@ picks some, for a short check), each printing its own lines:
    4 steps, then ``evaluate`` VFP 2 → 28 windowed with the kernel and the
    plain path (PSNR within 0.01 dB, launches = forwards × 32) and the call
    shapes of its eval step; one KITTI (batch 16, resized) and one BAIR and
-   MovingMNIST batch through ``DataModule``.
+   MovingMNIST batch through ``DataModule``;
+10. serving options and model tools at the flagship width (batch 64, VFP
+   10→10, bf16): ``exec_mode="int8"`` through ``freeze_task`` (no kernel
+   launch; feature drift under 5 % and PSNR over 40 dB against the kernel
+   path, tests/test_quant.py's limits; ms per forward beside the kernel
+   path's); ``export_task`` → ``serve_exported`` (bit-equal to
+   ``freeze_task``, 32 launches through the op per chunk, 64 + 17 clips
+   chunked and padded, ms per batch served and live, the bundle's size),
+   and the kernel through its torch op against its launch function called
+   directly (a forward each way, host µs per call); three stage-1 steps of
+   a ``learn_3d`` SMMNIST AE and the decoder's ``s2d_head`` and
+   ``subpixel`` forms against the direct ones (fp32 1e-4, bf16 0.1);
+   ``save_weights`` → ``from_weights`` (bit-equal to the live model with
+   float16-rounded weights); a synthetic flagship LitPredictor checkpoint
+   through the converter (bit-equal forward).
 
 Any failure exits non-zero; without CUDA it exits non-zero at once. The last
 three lines are the kernels' JSON record, the card's name and power limit,
@@ -83,6 +97,7 @@ and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import math
 import shutil
 import statistics
 import subprocess
@@ -357,6 +372,7 @@ def phase_flagship(torch, ta):
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"peak memory {peak:.2f} GiB (kernel_oproj forward)")
     print("serving " + json.dumps({**serving, "peak_gib": peak}))
+    WORK["serving"] = serving
     profile(torch, lambda: forward("kernel_oproj"))
     return launches, serving
 
@@ -1432,12 +1448,363 @@ def phase_data_models(torch, ta):
     return out
 
 
+# -- phase 10: serving options and model tools -----------------------------
+
+def _psnr(a, b):
+    """PSNR in dB between two Tanh outputs (peak-to-peak 2)."""
+    mse = float(((a.float() - b.float()) ** 2).mean())
+    return float("inf") if mse == 0 else 10 * math.log10(4.0 / mse)
+
+
+def _blocks(torch, fns, n=3, rounds=2):
+    """Median ms per call of each of ``fns`` (name → callable), timed in
+    blocks of ``n`` in turns (a, b, b, a)."""
+    times = {name: [] for name in fns}
+    order = list(fns)
+    for r in range(rounds):
+        for name in (order if r % 2 == 0 else order[::-1]):
+            times[name].append(time_forwards(torch, fns[name], n))
+    return {name: statistics.median(ms) for name, ms in times.items()}
+
+
+def _int8_forward(torch, ta, np, vps, frames, eps, to, tp):
+    """(a) exec_mode int8 against the bf16 kernel path: launches, drift,
+    PSNR and ms per forward."""
+    runs = {m: vp.freeze_task(to, tp) for m, vp in vps.items()}
+    outs, seen = {}, {}
+    for mode, fn in runs.items():
+        fn(frames, eps=eps)  # warm-up
+        reset_launches(ta)
+        outs[mode] = fn(frames, eps=eps)
+        torch.cuda.synchronize()
+        launches = seen[mode] = dict(ta.LAUNCHES)
+        print(f"{mode}: one forward -> kernel launches {launches}")
+        check(launches == ({"oproj": 32, "attn": 0} if mode == "pallas"
+                           else {"oproj": 0, "attn": 0}),
+              f"{mode}: unexpected launches {launches}")
+    feats = {}
+    with torch.inference_mode():
+        for mode, vp in vps.items():
+            f = vp.ae.encode(frames)
+            feats[mode] = vp.predictor(f, vp._coords(to), vp._coords(tp),
+                                       eps).pred_features.float()
+    a, b = feats["pallas"], feats["int8"]
+    drift = float((a - b).abs().mean() / (a.abs().mean() + 1e-9))
+    psnr = _psnr(outs["pallas"], outs["int8"])
+    ok = bool(torch.isfinite(outs["int8"].float()).all())
+    print(f"int8 vs bf16 kernel path: feature drift {drift:.4f} (limit "
+          f"0.05, tests/test_quant.py's), output PSNR {psnr:.2f} dB (limit "
+          f"40 dB, tests/test_quant.py's)")
+    check(ok and drift < 0.05 and psnr > 40.0, "int8 drifts too far")
+    ms = _blocks(torch, {m: (lambda fn=fn: fn(frames, eps=eps))
+                         for m, fn in runs.items()})
+    phase4 = WORK.get("serving", {}).get("kernel_oproj", {})
+    print(f"ms per forward: int8 {ms['int8']:.2f} "
+          f"({640 / (ms['int8'] / 1e3):.1f} frames/s), bf16 kernel path "
+          f"{ms['pallas']:.2f} ({640 / (ms['pallas'] / 1e3):.1f} frames/s)"
+          + (f"; phase 4 kernel_oproj {phase4['ms_per_forward']:.2f}"
+             if phase4 else ""))
+    return {"int8_ms": ms["int8"], "pallas_ms": ms["pallas"],
+            "int8_frames_per_s": 640 / (ms["int8"] / 1e3),
+            "phase4_kernel_oproj_ms": phase4.get("ms_per_forward"),
+            "feature_drift": drift, "psnr_db": psnr, "launches": seen}
+
+
+def _op_overhead(torch, ta, fn, frames, eps):
+    """The kernel through its torch op against its launch function called
+    directly: a flagship forward each way, and host µs per call at a small
+    shape (64 windows of 16 tokens, where the card waits on the host)."""
+    via_op = ta.temporal_attention
+
+    def direct(q, k, v, bias=None, *, num_heads, wo=None, bo=None):
+        return ta.launch(q, k, v, bias, wo, bo, num_heads)
+
+    def forward(use_op):
+        ta.temporal_attention = via_op if use_op else direct
+        try:
+            return fn(frames, eps=eps)
+        finally:
+            ta.temporal_attention = via_op
+
+    check(torch.equal(forward(True), forward(False)),
+          "the op and the direct launch give different forwards")
+    ms = _blocks(torch, {"op": lambda: forward(True),
+                         "direct": lambda: forward(False)}, n=3, rounds=4)
+    x = make_inputs(torch, 64, 16, 16, None, torch.bfloat16, True)
+    args = (x["q"], x["k"], x["v"], None)
+    saved = dict(ta.LAUNCHES)
+    host = {}
+    for name, call in (("op", lambda: via_op(*args, num_heads=NH,
+                                             wo=x["wo"], bo=x["bo"])),
+                       ("direct", lambda: ta.launch(*args, x["wo"],
+                                                    x["bo"], NH))):
+        for _ in range(20):
+            call()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(500):
+            call()
+        host[name] = (time.perf_counter() - t0) / 500 * 1e6
+        torch.cuda.synchronize()
+    ta.LAUNCHES.update(saved)
+    print(f"kernel through the op vs direct: forward {ms['op']:.2f} vs "
+          f"{ms['direct']:.2f} ms; host {host['op']:.1f} vs "
+          f"{host['direct']:.1f} us per call (64 windows, bf16, fused)")
+    return {"forward_op_ms": ms["op"], "forward_direct_ms": ms["direct"],
+            "host_us_per_call_op": host["op"],
+            "host_us_per_call_direct": host["direct"]}
+
+
+def _export_bundle(torch, ta, np, vp, frames, eps, to, tp):
+    """(b) export_task → serve_exported under exec_mode pallas."""
+    from npvp_tpu_torch.models.inference import VideoPredictor
+
+    bundle = Path(WORK["dir"]) / "bundle"
+    t0 = time.perf_counter()
+    vp.export_task(bundle, to, tp, 64)
+    export_s = time.perf_counter() - t0
+    size = sum(f.stat().st_size for f in bundle.iterdir())
+    t0 = time.perf_counter()
+    serve = VideoPredictor.serve_exported(bundle)
+    load_s = time.perf_counter() - t0
+    live = vp.freeze_task(to, tp)
+    serve(frames, eps)  # warm-up
+    reset_launches(ta)
+    served = serve(frames, eps)
+    torch.cuda.synchronize()
+    launches = dict(ta.LAUNCHES)
+    want = live(frames, eps=eps)
+    check(launches == {"oproj": 32, "attn": 0},
+          f"served chunk: launches {launches}, not 32 through the op")
+    check(torch.equal(served, want), "the bundle's output is not "
+          "freeze_task's")
+    g = torch.Generator(device="cuda").manual_seed(2)
+    extra = torch.rand((17,) + tuple(frames.shape[1:]), generator=g,
+                       device="cuda") * 2 - 1
+    extra_eps = torch.randn((17,) + tuple(eps.shape[1:]), generator=g,
+                            device="cuda")
+    reset_launches(ta)
+    big = serve(torch.cat([frames, extra]), torch.cat([eps, extra_eps]))
+    torch.cuda.synchronize()
+    launches81 = dict(ta.LAUNCHES)
+    pad = lambda t: torch.cat([t, t.new_zeros((47,) + t.shape[1:])])  # noqa
+    tail = live(pad(extra), eps=pad(extra_eps))[:17]
+    check(launches81 == {"oproj": 64, "attn": 0} and big.shape[0] == 81
+          and torch.equal(big[:64], want) and torch.equal(big[64:], tail),
+          f"a request of 64 + 17 clips: launches {launches81}, or rows "
+          "that are not freeze_task's")
+    ms = _blocks(torch, {"served": lambda: serve(frames, eps),
+                         "live": lambda: live(frames, eps=eps)})
+    print(f"bundle: export {export_s:.1f} s, load {load_s:.1f} s, "
+          f"{size / 2 ** 20:.1f} MiB on disk; served output bit-equal to "
+          f"freeze_task, 32 launches a chunk; 64 + 17 clips in 2 chunks "
+          f"(64 launches), rows bit-equal; ms per batch of 64: served "
+          f"{ms['served']:.2f}, live {ms['live']:.2f}")
+    overhead = _op_overhead(torch, ta, live, frames, eps)
+    shutil.rmtree(bundle)
+    return {"export_s": export_s, "load_s": load_s, "bundle_mib":
+            size / 2 ** 20, "launches_per_chunk": launches["oproj"],
+            "launches_81": launches81["oproj"], "served_ms": ms["served"],
+            "live_ms": ms["live"], "op": overhead}
+
+
+def _ae_variants(torch, ta, np):
+    """(c) three stage-1 steps of a learn_3d AE, and the decoder's
+    s2d_head and subpixel forms against the direct ones."""
+    from npvp_tpu_torch.core.config import load_config
+    from npvp_tpu_torch.nn.resnet_ae import ResnetDecoder
+    from npvp_tpu_torch.tools.weights import random_init
+    from npvp_tpu_torch.train import stage1_ae as s1
+
+    work = WORK["dir"]
+    cfg = load_config(CONFIGS / "config_SMMNIST_Autoencoder.yaml", [
+        "AE.learn_3d=true", "AE.epochs=1", "AE.log_per_epochs=1",
+        f"AE.ckpt_save_dir={work}/ae3d",
+        f"AE.tensorboard_save_dir={work}/ae3d_log",
+        "Dataset.dev_set_size=24"])
+    _, rec, launches, peak, wall = _timed_train(
+        torch, ta, np, s1.train, cfg,
+        {"train": "L1_loss_train", "eval": "L1_loss_valid"})
+    check(len(rec["train"]) == 3 and sum(launches.values()) == 0,
+          f"learn_3d: {len(rec['train'])} steps, launches {launches}")
+    tr = rec["train"]
+    out = {"learn_3d": {"step_ms": [r["ms"] for r in tr],
+                        "last_step_ms": tr[-1]["ms"], "peak_gib": peak,
+                        "losses": [r["loss"] for r in tr]}}
+    print(f"learn_3d stage-1 (SMMNIST AE, batch 8 x 15 frames, bf16): 3 "
+          f"steps {[round(r['ms'], 2) for r in tr]} ms (the last after 2 "
+          f"warm-up), peak {peak:.2f} GiB, {wall:.1f} s with set-up; L1 "
+          f"{[round(r['loss'], 4) for r in tr]}")
+
+    a = cfg.AE
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    feats = torch.rand((8, 15, 8, 8, a.ngf * 2 ** a.n_downsampling),
+                       generator=gen, device="cuda")
+    tol = {torch.float32: 1e-4, torch.bfloat16: 0.1}
+    for dtype in (torch.float32, torch.bfloat16):
+        make = lambda **kw: ResnetDecoder(  # noqa: E731
+            1, a.ngf, a.n_downsampling, dtype=dtype, **kw).cuda().eval()
+        direct = random_init(make(), 5)
+        dt = str(dtype).replace("torch.", "")
+        with torch.inference_mode():
+            want = direct(feats).float()
+            for kw in ({"s2d_head": True}, {"subpixel": True}):
+                variant = make(**kw)
+                variant.load_state_dict(direct.state_dict())
+                got = variant(feats).float()
+                err = float((got - want).abs().max())
+                ms = _blocks(torch, {"variant": lambda: variant(feats),
+                                     "direct": lambda: direct(feats)})
+                name = next(iter(kw))
+                out[f"{name}_{dt}"] = {"max_abs_err": err, "ms":
+                                       ms["variant"], "direct_ms":
+                                       ms["direct"]}
+                print(f"{name} {dt}: max|d| {err:.3e} against the direct "
+                      f"form (tol {tol[dtype]}); decode of 120 frames "
+                      f"{ms['variant']:.2f} ms vs {ms['direct']:.2f} ms")
+                check(err <= tol[dtype], f"{name} {dt} departs from the "
+                      "direct form")
+    return out
+
+
+def _weights_round_trip(torch, np, vp, frames, eps, to, tp, cfg):
+    """(d) save_weights → from_weights at flagship width: the served
+    outputs equal those of the live model with its weights rounded as the
+    archive stores them (float16 where every |x| < 60000)."""
+    import copy
+
+    from npvp_tpu_torch.models.inference import VideoPredictor
+    from npvp_tpu_torch.tools.weights import save_weights
+
+    path = Path(WORK["dir"]) / "weights.npz"
+    t0 = time.perf_counter()
+    save_weights(path, vp.ae, vp.predictor, {"ae_step": 0, "pred_step": 0})
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = VideoPredictor.from_weights(cfg, path, exec_mode="pallas")
+    load_s = time.perf_counter() - t0
+    rounded = copy.deepcopy(vp)
+    with torch.no_grad():
+        for module in (rounded.ae, rounded.predictor):
+            for t in list(module.parameters()) + list(module.buffers()):
+                if t.is_floating_point() and float(t.abs().max()) < 60000:
+                    t.copy_(t.half().float())
+    got = loaded.freeze_task(to, tp)(frames, eps=eps)
+    want = rounded.freeze_task(to, tp)(frames, eps=eps)
+    live = vp.freeze_task(to, tp)(frames, eps=eps)
+    fp16 = float((got.float() - live.float()).abs().max())
+    size = path.stat().st_size / 2 ** 20
+    print(f"weights archive: {size:.1f} MiB, save {save_s:.1f} s, "
+          f"from_weights {load_s:.1f} s; outputs bit-equal to the live "
+          f"model's with float16-rounded weights: {torch.equal(got, want)}; "
+          f"max|d| {fp16:.3e} against the unrounded live model")
+    check(torch.equal(got, want), "from_weights does not serve the archive")
+    path.unlink()
+    return {"mib": size, "save_s": save_s, "load_s": load_s,
+            "max_abs_vs_unrounded": fp16}
+
+
+def _lightning_file(torch, path, state_dict):
+    """A Lightning-style checkpoint whose hyper-parameters are objects of a
+    class from a module that is gone when it is read."""
+    import types
+
+    mod = types.ModuleType("lit_run_classes")
+
+    class AttributeDict(dict):
+        pass
+
+    AttributeDict.__module__ = mod.__name__
+    AttributeDict.__qualname__ = "AttributeDict"
+    mod.AttributeDict = AttributeDict
+    sys.modules[mod.__name__] = mod
+    try:
+        torch.save({"state_dict": state_dict, "epoch": 399,
+                    "hyper_parameters": AttributeDict(lr=1e-4)}, path)
+    finally:
+        del sys.modules[mod.__name__]
+
+
+def _converter(torch, vp, frames, eps, to, tp, cfg):
+    """(e) a synthetic flagship-size LitPredictor checkpoint (the
+    predictor behind ``predictor.``, the frozen AE beside it) in the
+    reference's key names → the converter → the same forward."""
+    sys.path.insert(0, str(HERE / "tests"))
+    from _torch_helpers import (reference_ae_state_dict,
+                                reference_predictor_state_dict)
+
+    from npvp_tpu_torch.models.inference import VideoPredictor
+    from npvp_tpu_torch.tools.torch_converter import \
+        convert_lightning_predictor
+    from npvp_tpu_torch.tools.weights import to_flax
+
+    path = Path(WORK["dir"]) / "predictor.ckpt"
+    a = cfg.AE
+    sd = reference_predictor_state_dict(to_flax(vp.predictor),
+                                        prefix="predictor.")
+    sd.update(reference_ae_state_dict(to_flax(vp.ae), a.n_downsampling,
+                                      a.num_res_blocks, a.learn_3d))
+    _lightning_file(torch, path, sd)
+    size = path.stat().st_size / 2 ** 20
+    t0 = time.perf_counter()
+    pred_vars, ae_vars = convert_lightning_predictor(str(path), cfg)
+    convert_s = time.perf_counter() - t0
+    converted = VideoPredictor.from_variables(cfg, ae_vars, pred_vars,
+                                              exec_mode="pallas")
+    got = converted.freeze_task(to, tp)(frames, eps=eps)
+    want = vp.freeze_task(to, tp)(frames, eps=eps)
+    print(f"converter: a {size:.1f} MiB LitPredictor checkpoint "
+          f"({len(sd)} tensors, an object of a class not installed) "
+          f"converted in {convert_s:.1f} s; forward bit-equal to the "
+          f"source model's: {torch.equal(got, want)}")
+    check(torch.equal(got, want), "the converted model's forward differs")
+    path.unlink()
+    return {"ckpt_mib": size, "tensors": len(sd), "convert_s": convert_s}
+
+
+def phase_serving_tools(torch, ta):
+    """int8 serving, bundles, the AE variants, the weights writer and the
+    converter at the flagship width."""
+    import numpy as np
+
+    from npvp_tpu_torch.core.config import flagship_config
+    from npvp_tpu_torch.models.inference import VideoPredictor
+
+    cfg = flagship_config()
+    p, d = cfg.Predictor, cfg.Dataset
+    vps = {m: VideoPredictor.from_random_init(cfg, torch.bfloat16, seed=0,
+                                              exec_mode=m)
+           for m in ("pallas", "int8")}
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    frames = torch.rand((64, 10, d.img_size, d.img_size, d.img_channels),
+                        generator=gen, device="cuda") * 2 - 1
+    eps = torch.randn((64, p.max_H, p.max_W, p.embed_dim), generator=gen,
+                      device="cuda")
+    to, tp = np.arange(10), np.arange(10, 20)
+    out = {}
+    for name, step in (
+            ("int8", lambda: _int8_forward(torch, ta, np, vps, frames, eps,
+                                           to, tp)),
+            ("export", lambda: _export_bundle(torch, ta, np, vps["pallas"],
+                                              frames, eps, to, tp)),
+            ("ae_variants", lambda: _ae_variants(torch, ta, np)),
+            ("weights", lambda: _weights_round_trip(
+                torch, np, vps["pallas"], frames, eps, to, tp, cfg)),
+            ("converter", lambda: _converter(torch, vps["pallas"], frames,
+                                             eps, to, tp, cfg))):
+        t0 = time.perf_counter()
+        out[name] = step()
+        print(f"({name}: {time.perf_counter() - t0:.1f} s)")
+    print("serving_tools " + json.dumps(out))
+    return out
+
+
 def main(argv) -> int:
     import argparse
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases", help="comma-separated phase numbers "
-                        "(1-9) for a short check; the default runs all and "
+                        "(1-10) for a short check; the default runs all and "
                         "prints the record")
     args = parser.parse_args(argv)
     picked = (None if args.phases is None
@@ -1476,7 +1843,8 @@ def main(argv) -> int:
               ("stage-2 training", phase_training),
               ("stage-1 training", phase_stage1),
               ("chain: stage 2, evaluation, serving", phase_chain),
-              ("data layer and new models", phase_data_models)]
+              ("data layer and new models", phase_data_models),
+              ("serving options and tools", phase_serving_tools)]
     if picked is not None:
         phases = [ph for i, ph in enumerate(phases, 1) if i in picked]
     WORK["dir"] = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -1506,6 +1874,7 @@ def main(argv) -> int:
     per_city = results["per-call timing"]["eval_step_cityscapes"]
     training = results["stage-2 training"]
     new = results["data layer and new models"]
+    tools = results["serving options and tools"]
     replaces = {"oproj": "npvp_tpu/kernels/temporal_attention.py:136",
                 "attn": "npvp_tpu/kernels/temporal_attention.py:127"}
     run_of = {"oproj": "kernel_oproj", "attn": "kernel_attn"}
@@ -1544,6 +1913,10 @@ def main(argv) -> int:
                 "cityscapes_evaluate_2_to_28": (
                     new["cityscapes"]["evaluate"]["launches"]
                     if v == "oproj" else 0)},
+            "launches_phase10": {
+                "served_bundle_chunk": (tools["export"]["launches_per_chunk"]
+                                        if v == "oproj" else 0),
+                "int8_forward": tools["int8"]["launches"]["int8"][v]},
             "times": "per flagship forward: the sum over its 32 calls, bf16",
             "per_call": acc["per_call"]})
     print(json.dumps({"kernels": kernels}))

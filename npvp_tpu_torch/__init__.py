@@ -6,9 +6,11 @@ holds the same math on the same parameters (carried across by
 a hand-written CUDA kernel (``npvp_tpu_torch.kernels``). Ported so far: the
 serving path (``VideoPredictor``), the stage-1 and stage-2 trainers
 (``npvp_tpu_torch.train``), the evaluation (``npvp_tpu_torch.eval``) and
-inference CLIs, and the data of every shipped config
-(``npvp_tpu_torch.data``). This package imports torch and nothing of jax
-or ``npvp_tpu``.
+inference CLIs, the data of every shipped config
+(``npvp_tpu_torch.data``), int8 serving, ``torch.export`` serving bundles,
+the AE's variants, and the weights writer and reference-checkpoint
+converter (``npvp_tpu_torch.tools``). This package imports torch and
+nothing of jax or ``npvp_tpu``.
 
 The names below load on first use, so that the data loader's worker
 processes, which import only ``npvp_tpu_torch.data``, start without torch.

@@ -13,12 +13,18 @@ accumulated in fp32; then either ``ctx`` (B, Tq, H·D) or ``Σ_h ctx_h·wo_hᵀ
 + bo`` (B, Tq, C) accumulated in fp32, stored in the compute dtype (float32
 or bfloat16).
 
-On a CPU tensor the wrapper runs the plain twin; on a CUDA tensor it
-launches the kernel (built from ``csrc/temporal_attention.cu`` with ``nvcc``
-at first use into ``kernels/_build/``) or raises. Nothing falls back. The
-kernel has no backward, so the wrapper refuses, on either device, inputs
-that autograd would differentiate: the call sites reach it in eval mode
-only, as the JAX package reaches its kernel only when ``deterministic``.
+The kernel is the torch op ``torch.ops.npvp.temporal_attention`` (both
+variants: ``wo`` None or given), so that ``torch.export`` keeps it in a
+serving bundle as one call: its CUDA implementation launches the kernel
+(built from ``csrc/temporal_attention.cu`` with ``nvcc`` at first use into
+``kernels/_build/``) or raises, its CPU implementation is the plain twin,
+and its fake implementation gives the output's shape and dtype to a trace.
+Nothing falls back. A process that loads such a bundle imports this module
+first, which registers the op. The kernel has no backward, so the wrapper
+:func:`temporal_attention` refuses, on either device and before the op,
+inputs that autograd would differentiate: the call sites reach it in eval
+mode only, as the JAX package reaches its kernel only when
+``deterministic``.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ import tempfile
 import time
 import weakref
 from pathlib import Path
+from typing import Optional
 
 import torch
 
@@ -184,18 +191,47 @@ def temporal_attention(q, k, v, bias=None, *, num_heads: int, wo=None,
     64 and, fused, at most 8 heads and C a multiple of 8 (the Hopper
     kernel's 128-byte rows, its shared memory and its TMA strides).
     Raises under autograd: call it under ``torch.no_grad()`` or with inputs
-    that need no gradient."""
+    that need no gradient. Calls the op ``npvp::temporal_attention``: the
+    kernel on a CUDA tensor, the plain twin on a CPU one."""
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (q, k, v, bias, wo,
                                                          bo)):
         raise RuntimeError(
             "temporal_attention has no backward: its inputs require grad "
             "(run it under torch.no_grad(), or train on the plain path)")
-    if q.device.type == "cpu":
-        return temporal_attention_plain(q, k, v, bias, num_heads=num_heads,
-                                        wo=wo, bo=bo)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {q.device}")
+    return torch.ops.npvp.temporal_attention(q, k, v, bias, wo, bo,
+                                             num_heads)
+
+
+@torch.library.custom_op("npvp::temporal_attention", mutates_args=(),
+                         device_types="cuda")
+def _temporal_attention_op(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, bias: Optional[torch.Tensor],
+                           wo: Optional[torch.Tensor],
+                           bo: Optional[torch.Tensor],
+                           num_heads: int) -> torch.Tensor:
+    return launch(q, k, v, bias, wo, bo, num_heads)
+
+
+@_temporal_attention_op.register_kernel("cpu")
+def _temporal_attention_cpu(q, k, v, bias, wo, bo, num_heads):
+    return temporal_attention_plain(q, k, v, bias, num_heads=num_heads,
+                                    wo=wo, bo=bo)
+
+
+@_temporal_attention_op.register_fake
+def _temporal_attention_fake(q, k, v, bias, wo, bo, num_heads):
+    C = q.shape[-1] if wo is None else wo.shape[0]
+    return q.new_empty((q.shape[0], q.shape[1], C))
+
+
+def launch(q, k, v, bias, wo, bo, num_heads: int):
+    """The kernel on CUDA tensors, no dispatcher between: checks the
+    shapes, casts ``wo`` once per weight (:func:`wo_operand`), allocates
+    the output, launches on the current stream, raises on a launch error
+    and counts the launch. The op's CUDA implementation."""
     B, Tq, HD = q.shape
     Tk = k.shape[1]
     if k.shape != (B, Tk, HD) or v.shape != k.shape:

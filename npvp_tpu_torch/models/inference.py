@@ -14,16 +14,20 @@ The pipeline is AE encode → NP predictor → AE decode, run eagerly under
 ``torch.Generator`` (seeded 0 unless the caller passes one) or takes it as
 ``eps``; the windows of ``vfp_windowed`` and the batches of
 ``predict_stream`` draw from one generator in their order, or take ``eps``
-as a sequence with one entry each. Not ported yet: ``shard`` and
-``export_task``/``serve_exported``.
+as a sequence with one entry each. ``export_task`` writes one task's
+forward as a serving bundle (``torch.export``), which ``serve_exported``
+runs without the model code. Not ported yet: ``shard``.
 """
 
 from __future__ import annotations
 
+import json
+from pathlib import Path
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
+from torch import nn
 
 from npvp_tpu_torch.core.config import Config
 from npvp_tpu_torch.core.device import resolve_device
@@ -32,6 +36,22 @@ from npvp_tpu_torch.models.predictor import NPPredictor, build_predictor
 from npvp_tpu_torch.nn.resnet_ae import FrameAutoEncoder, build_ae
 from npvp_tpu_torch.tools.weights import (load_flax, load_trained,
                                           load_weights, random_init)
+
+
+class _FrozenTask(nn.Module):
+    """One task's forward, frames (and NPVP-S's noise) → predicted frames,
+    with the coordinate grids held as buffers: the module that
+    ``export_task`` exports."""
+
+    def __init__(self, ae, predictor, oc, tc):
+        super().__init__()
+        self.ae, self.predictor = ae, predictor
+        self.register_buffer("oc", oc)
+        self.register_buffer("tc", tc)
+
+    def forward(self, frames, eps=None):
+        out = self.predictor(self.ae.encode(frames), self.oc, self.tc, eps)
+        return self.ae.decode(out.pred_features)
 
 
 class VideoPredictor:
@@ -160,6 +180,100 @@ class VideoPredictor:
             return self._run(observed_frames, oc, tc, eps, generator)
 
         return predict_frozen
+
+    # -- serving bundles -----------------------------------------------------
+    def export_task(self, path, to_list: Sequence[float],
+                    tp_list: Sequence[float], batch_size: int) -> None:
+        """Write the task's forward (``freeze_task``'s) as a serving bundle
+        in directory ``path``: ``program.pt2`` (``torch.export`` of the
+        model with its weights, its coordinate grids as constants) and
+        ``meta.json`` (the task's times, the static batch, the frames' and
+        the noise's shapes, device, dtype and exec_mode). The program takes
+        ``batch_size`` clips of ``len(to_list)`` frames, float32 on this
+        predictor's device, and for NPVP-S the latent noise (batch_size,
+        max_H, max_W, embed_dim) as a plain tensor. The attention kernel
+        stays in it as the op ``npvp::temporal_attention``."""
+        d, p = self.cfg.Dataset, self.cfg.Predictor
+        oc, tc = self._coords(to_list), self._coords(tp_list)
+        frames_shape = (batch_size, len(to_list), d.img_size, d.img_size,
+                        d.img_channels)
+        eps_shape = ((batch_size, p.max_H, p.max_W, p.embed_dim)
+                     if p.stochastic else None)
+        args = (torch.zeros(frames_shape, device=self.device),)
+        if eps_shape is not None:
+            args += (torch.zeros(eps_shape, device=self.device),)
+        with torch.no_grad():
+            program = torch.export.export(
+                _FrozenTask(self.ae, self.predictor, oc, tc).eval(), args)
+        out = Path(path)
+        out.mkdir(parents=True, exist_ok=True)
+        torch.export.save(program, out / "program.pt2")
+        (out / "meta.json").write_text(json.dumps({
+            "to_list": [float(t) for t in to_list],
+            "tp_list": [float(t) for t in tp_list],
+            "batch_size": batch_size, "frames_shape": list(frames_shape),
+            "eps_shape": None if eps_shape is None else list(eps_shape),
+            "device": self.device.type,
+            "dtype": str(self.predictor.dtype).replace("torch.", ""),
+            "exec_mode": self.predictor.exec_mode}))
+
+    @staticmethod
+    def serve_exported(path, device="cuda"):
+        """Load a bundle written by :meth:`export_task` and return
+        ``fn(observed_frames, eps=None, generator=None) -> (N, TP, H, W,
+        C)``, which runs the exported program alone: no model modules, no
+        config. It needs torch and, for a bundle holding the attention
+        kernel, the op registered first: ``import
+        npvp_tpu_torch.kernels.temporal_attention`` (this module does).
+
+        The program's batch is static: a request of N clips runs in chunks
+        of that batch, the last one padded with zeros whose rows are
+        dropped (clips are independent: the norms use frozen statistics).
+        NPVP-S: ``eps`` (N, max_H, max_W, embed_dim) gives each clip its
+        noise, so the first chunk takes the caller's ``eps`` as given;
+        without it each chunk draws (batch, ...) from ``generator`` (a
+        fresh one seeded 0), the first chunk exactly as ``freeze_task``
+        draws for a batch of that size."""
+        out_dir = Path(path)
+        meta = json.loads((out_dir / "meta.json").read_text())
+        dev = resolve_device(device)
+        if dev.type != meta["device"]:
+            raise ValueError(f"{path}: bundle exported for "
+                             f"{meta['device']}, asked to serve on "
+                             f"{dev.type}")
+        program = torch.export.load(out_dir / "program.pt2").module()
+        shape = tuple(meta["frames_shape"])
+        eps_shape = meta["eps_shape"] and tuple(meta["eps_shape"])
+        B = shape[0]
+
+        def pad(t):  # to the program's batch, with zero rows
+            return t if t.shape[0] == B else torch.cat(
+                [t, t.new_zeros((B - t.shape[0],) + t.shape[1:])])
+
+        def serve(observed_frames, eps=None, generator=None):
+            frames = torch.as_tensor(observed_frames, dtype=torch.float32,
+                                     device=dev)
+            if frames.shape[1:] != shape[1:]:
+                raise ValueError(f"exported task takes frames (N,)+"
+                                 f"{shape[1:]}, got {tuple(frames.shape)}")
+            if eps is not None:
+                eps = torch.as_tensor(eps, dtype=torch.float32, device=dev)
+            gen = (generator if generator is not None else
+                   torch.Generator(device=dev).manual_seed(0))
+            outs = []
+            with torch.inference_mode():
+                for i in range(0, frames.shape[0], B):
+                    chunk = frames[i:i + B]
+                    args = (pad(chunk),)
+                    if eps_shape is not None:
+                        args += (pad(eps[i:i + B]) if eps is not None else
+                                 torch.randn(eps_shape, generator=gen,
+                                             device=dev),)
+                    outs.append(program(*args)[:chunk.shape[0]])
+            return outs[0] if len(outs) == 1 else torch.cat(outs)
+
+        serve.meta = meta
+        return serve
 
     # -- the five tasks ------------------------------------------------------
     def vfp(self, past_frames, num_future: int, eps=None, generator=None):

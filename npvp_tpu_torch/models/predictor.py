@@ -57,14 +57,14 @@ class NPPredictor(nn.Module):
                  dim_feedforward: int = 1024, exec_mode: str = "xla",
                  remat: bool = False, spatial=(8, 8), dtype=torch.float32):
         super().__init__()
-        if exec_mode not in ("xla", "pallas"):
-            raise NotImplementedError(
-                f"exec_mode {exec_mode!r} is not ported to PyTorch yet")
+        if exec_mode not in ("xla", "pallas", "int8"):
+            raise ValueError(f"unknown exec_mode {exec_mode!r}")
         # the positional fusion folds through the projections when it is an
         # affine map of the input: 'layer' norm + 'Add' fusion
         affine = fuse_method == "Add" and norm_type == "layer"
         self.evt_former, self.stochastic, self.norm_type = (
             evt_former, stochastic, norm_type)
+        self.exec_mode, self.dtype = exec_mode, dtype
         block_kw = dict(window_size=window_size, dropout=dropout,
                         drop_path=drop_path,
                         ffn_hidden_ratio=ffn_hidden_ratio,
@@ -173,7 +173,8 @@ def build_predictor(cfg, dtype=torch.float32,
                     exec_mode: Optional[str] = None) -> NPPredictor:
     """NPPredictor from a Config; ``exec_mode`` overrides
     ``cfg.Predictor.exec_mode`` ("xla": plain PyTorch ops, "pallas": the
-    hand-written attention kernel in eval mode)."""
+    hand-written attention kernel in eval mode, "int8": dynamic int8
+    projections and feed-forward products, the plain attention)."""
     p = cfg.Predictor
     return NPPredictor(
         embed_dim=p.embed_dim, num_heads=p.num_heads,

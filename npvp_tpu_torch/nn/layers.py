@@ -25,6 +25,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from npvp_tpu_torch.nn.quant import int8_contract
+
 
 class Rng:
     """A random stream named by a 63-bit seed. Children are derived by name
@@ -94,9 +96,15 @@ def scaled_dot_product_attention(q, k, v, mask=None, dropout_rate=0.0,
     return torch.einsum("...hqk,...khd->...qhd", weights, v)
 
 
-def linear(x, layer: nn.Linear, dtype):
-    """``x @ W + b`` in the compute dtype, W and b cast from float32."""
+def linear(x, layer: nn.Linear, dtype, quant: bool = False):
+    """``x @ W + b`` in the compute dtype, W and b cast from float32; with
+    ``quant`` the product is the dynamic int8 one
+    (:func:`~npvp_tpu_torch.nn.quant.int8_contract`) and the bias is added
+    after it, as the JAX package's ``QuantDense`` does."""
     bias = None if layer.bias is None else layer.bias.to(dtype)
+    if quant:
+        y = int8_contract(x, layer.weight.t(), out_dtype=dtype)
+        return y if bias is None else y + bias
     return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
 
 
@@ -112,12 +120,15 @@ class MultiHeadAttention(nn.Module):
     """q/k/v/output projections plus attention (port of the flax
     ``MultiHeadAttention``; its DenseGeneral kernels become ``nn.Linear``
     weights of shape (H·D, C) and (C, H·D)). In training mode the attention
-    weights are dropped at rate ``dropout``."""
+    weights are dropped at rate ``dropout``. With ``quant`` the four
+    projections are dynamic int8 products; the attention itself stays in
+    the compute dtype."""
 
     def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0,
-                 dtype=torch.float32):
+                 dtype=torch.float32, quant: bool = False):
         super().__init__()
         self.num_heads, self.dropout, self.dtype = num_heads, dropout, dtype
+        self.quant = quant
         self.wq = nn.Linear(embed_dim, embed_dim)
         self.wk = nn.Linear(embed_dim, embed_dim)
         self.wv = nn.Linear(embed_dim, embed_dim)
@@ -132,12 +143,14 @@ class MultiHeadAttention(nn.Module):
                 rng: Optional[Rng] = None):
         H = self.num_heads
         heads = lambda t: t.reshape(t.shape[:-1] + (H, -1))  # noqa: E731
-        q = heads(linear(q_in, self.wq, self.dtype))
-        k = heads(linear(k_in, self.wk, self.dtype))
-        v = heads(linear(v_in, self.wv, self.dtype))
+        proj = lambda t, layer: linear(t, layer, self.dtype,  # noqa: E731
+                                       self.quant)
+        q = heads(proj(q_in, self.wq))
+        k = heads(proj(k_in, self.wk))
+        v = heads(proj(v_in, self.wv))
         out = scaled_dot_product_attention(q, k, v, mask, self.dropout_rate,
                                            rng)
-        return linear(out.flatten(-2), self.wo, self.dtype)
+        return proj(out.flatten(-2), self.wo)
 
 
 def fp32_moments(x, dims, keepdim: bool = True):

@@ -1,12 +1,16 @@
-"""Stage-1 per-frame ResNet autoencoder (port of ``npvp_tpu/nn/resnet_ae.py``,
-serving path: ``FrameAutoEncoder.encode`` and ``.decode``).
+"""Stage-1 per-frame ResNet autoencoder (port of ``npvp_tpu/nn/resnet_ae.py``).
 
 Frames are processed with time folded into batch, (N, T, H, W, C) →
-(N·T, H, W, C). Only ``learn_3d=False`` (every shipped config) and the
-ConvTranspose upsampling with the direct 7×7 head are ported.
+(N·T, H, W, C). With ``learn_3d`` each factorized block adds a temporal
+conv1d and a 1-D non-local attention over the T axis of every (h, w)
+site. The decoder's ``subpixel`` upsampling and ``s2d_head`` output head
+are the same functions on the same parameters as its ConvTranspose and
+direct 7×7 head (``npvp_tpu_torch.nn.upsample``).
 """
 
 from __future__ import annotations
+
+import warnings
 
 import torch
 import torch.nn.functional as F
@@ -14,6 +18,8 @@ from torch import nn
 
 from npvp_tpu_torch.nn.layers import (BatchNorm, ConvBNAct, conv_nhwc,
                                       linear, reflect_pad_2d)
+from npvp_tpu_torch.nn.upsample import (subpixel_conv_same,
+                                        subpixel_conv_transpose_3x3_s2)
 
 
 def _softmax_f32_stats(logits, dims):
@@ -60,19 +66,69 @@ class NonLocalAttention2D(nn.Module):
         return x + self.gamma.to(x.dtype) * out
 
 
-class Factorized3DConvAttn(nn.Module):
-    """Spatial conv (residual) then non-local 2D attention, residual around
-    the whole block (``learn_3d=False``)."""
+class NonLocalAttention1D(nn.Module):
+    """Temporal non-local attention over (B, T, C) series (B = N·H·W
+    sites): unscaled logits in the compute dtype with fp32 softmax
+    statistics, output projection, BatchNorm over (B, T), ReLU and a
+    zero-initialised residual gate ``gamma``."""
 
-    def __init__(self, channels: int, dtype=torch.float32):
+    def __init__(self, channels: int, attn_ratio: int = 8,
+                 value_ratio: int = 2, dtype=torch.float32):
         super().__init__()
+        C = channels
+        self.dtype = dtype
+        self.wq = nn.Linear(C, C // attn_ratio)
+        self.wk = nn.Linear(C, C // attn_ratio)
+        self.wv = nn.Linear(C, C // value_ratio)
+        self.out_proj = nn.Linear(C // value_ratio, C)
+        self.bn = BatchNorm(C, eps=1e-5, dtype=dtype)
+        self.gamma = nn.Parameter(torch.zeros(()))
+
+    def forward(self, x):
+        dt = self.dtype
+        q, k, v = (linear(x, layer, dt) for layer in (self.wq, self.wk,
+                                                       self.wv))
+        logits = torch.einsum("btc,bsc->bts", q.float(),
+                              k.float()).to(x.dtype)
+        weights = _softmax_f32_stats(logits, (-1,))
+        out = linear(torch.einsum("bts,bsc->btc", weights, v),
+                     self.out_proj, dt)
+        out = torch.relu(self.bn(out))
+        return x + self.gamma.to(x.dtype) * out
+
+
+class Factorized3DConvAttn(nn.Module):
+    """Spatial conv (residual) then non-local 2D attention; with
+    ``learn_3d`` then a temporal conv1d (kernel 3, zero-padded) with
+    BatchNorm and ReLU (residual) and a 1-D non-local attention over each
+    site's T frames; residual around the whole block."""
+
+    def __init__(self, channels: int, learn_3d: bool = False,
+                 dtype=torch.float32):
+        super().__init__()
+        self.learn_3d, self.dtype = learn_3d, dtype
         self.spatial_conv = ConvBNAct(channels, channels, 3, use_bias=True,
                                       dtype=dtype)
         self.attn2d = NonLocalAttention2D(channels, dtype=dtype)
+        if learn_3d:
+            self.temporal_conv = nn.Conv1d(channels, channels, 3, padding=1)
+            self.temporal_bn = BatchNorm(channels, eps=1e-5, dtype=dtype)
+            self.attn1d = NonLocalAttention1D(channels, dtype=dtype)
 
-    def forward(self, x):
-        y = self.spatial_conv(x) + x
-        return self.attn2d(y) + x
+    def forward(self, x, T: int):
+        y = self.attn2d(self.spatial_conv(x) + x)
+        if self.learn_3d:
+            NT, H, W, C = y.shape
+            N, dt = NT // T, self.dtype
+            yt = y.reshape(N, T, H, W, C).permute(0, 2, 3, 1, 4).reshape(
+                N * H * W, T, C)
+            tc = self.temporal_conv
+            conv = F.conv1d(yt.to(dt).permute(0, 2, 1), tc.weight.to(dt),
+                            tc.bias.to(dt), padding=1).permute(0, 2, 1)
+            yt = self.attn1d(torch.relu(self.temporal_bn(conv)) + yt)
+            y = yt.reshape(N, H, W, T, C).permute(0, 3, 1, 2, 4).reshape(
+                NT, H, W, C)
+        return y + x
 
 
 class ResnetBlock(nn.Module):
@@ -96,7 +152,7 @@ class ResnetEncoder(nn.Module):
 
     def __init__(self, img_channels: int = 1, ngf: int = 64,
                  n_downsampling: int = 3, num_res_blocks: int = 2,
-                 dtype=torch.float32):
+                 learn_3d: bool = False, dtype=torch.float32):
         super().__init__()
         self.dtype = dtype
         self.n_downsampling, self.num_res_blocks = (n_downsampling,
@@ -107,13 +163,13 @@ class ResnetEncoder(nn.Module):
         c = ngf * 2
         for i in range(1, n_downsampling):
             self.add_module(f"block{i + 1}_attn",
-                            Factorized3DConvAttn(c, dtype=dtype))
+                            Factorized3DConvAttn(c, learn_3d, dtype=dtype))
             self.add_module(f"block{i + 1}_conv",
                             ConvBNAct(c, c * 2, 3, stride=2, dtype=dtype))
             c *= 2
         for i in range(num_res_blocks):
             self.add_module(f"res_attn_{i}",
-                            Factorized3DConvAttn(c, dtype=dtype))
+                            Factorized3DConvAttn(c, learn_3d, dtype=dtype))
             self.add_module(f"res_conv_{i}", ResnetBlock(c, dtype=dtype))
 
     def forward(self, x):
@@ -121,11 +177,11 @@ class ResnetEncoder(nn.Module):
         x = x.reshape((N * T,) + x.shape[2:]).to(self.dtype)
         x = self.block1(self.block0(reflect_pad_2d(x, 3)))
         for i in range(1, self.n_downsampling):
-            x = getattr(self, f"block{i + 1}_attn")(x)
+            x = getattr(self, f"block{i + 1}_attn")(x, T)
             x = getattr(self, f"block{i + 1}_conv")(x)
         for i in range(self.num_res_blocks):
             x = getattr(self, f"res_conv_{i}")(
-                getattr(self, f"res_attn_{i}")(x))
+                getattr(self, f"res_attn_{i}")(x, T))
         x = torch.relu(x)
         return x.reshape((N, T) + x.shape[1:])
 
@@ -133,16 +189,22 @@ class ResnetEncoder(nn.Module):
 class ResnetDecoder(nn.Module):
     """Features (N, T, H', W', C) → frames (N, T, H, W, C_img) through
     ``ConvTranspose2d(k3, s2, p1, output_padding=1)`` upsampling and a 7×7
-    head with Tanh or Sigmoid."""
+    head with Tanh or Sigmoid. ``subpixel`` computes each upsampling as its
+    2×2 sub-pixel convolution, ``s2d_head`` the head as a stride-4
+    sub-pixel convolution where the padded frame side is 2 mod 4 (with a
+    warning, the direct head where it is not); same parameters either
+    way."""
 
     def __init__(self, out_channels: int = 1, ngf: int = 64,
                  n_downsampling: int = 3, out_layer: str = "Tanh",
+                 subpixel: bool = False, s2d_head: bool = False,
                  dtype=torch.float32):
         super().__init__()
         if out_layer not in ("Tanh", "Sigmoid"):
             raise ValueError(f"unsupported out_layer {out_layer!r}")
         self.n_downsampling, self.out_layer, self.dtype = (
             n_downsampling, out_layer, dtype)
+        self.subpixel, self.s2d_head = subpixel, s2d_head
         c = ngf * 2 ** n_downsampling
         for i in range(n_downsampling):
             feats = ngf * 2 ** (n_downsampling - i) // 2
@@ -159,10 +221,25 @@ class ResnetDecoder(nn.Module):
         x = x.reshape((N * T,) + x.shape[2:]).to(dt)
         for i in range(self.n_downsampling):
             up = getattr(self, f"up{i}_conv")
-            y = F.conv_transpose2d(x.permute(0, 3, 1, 2), up.weight.to(dt),
-                                   None, 2, 1, 1)
-            x = torch.relu(getattr(self, f"up{i}_bn")(y.permute(0, 2, 3, 1)))
-        x = conv_nhwc(reflect_pad_2d(x, 3), self.head, dt)
+            if self.subpixel:
+                y = subpixel_conv_transpose_3x3_s2(x, up.weight.to(dt))
+            else:
+                y = F.conv_transpose2d(x.permute(0, 3, 1, 2),
+                                       up.weight.to(dt), None, 2, 1,
+                                       1).permute(0, 2, 3, 1)
+            x = torch.relu(getattr(self, f"up{i}_bn")(y))
+        x = reflect_pad_2d(x, 3)
+        s2d_ok = x.shape[1] % 4 == x.shape[2] % 4 == 2
+        if self.s2d_head and not s2d_ok:
+            warnings.warn(
+                f"AE.s2d_head requested but padded spatial shape "
+                f"{x.shape[1]}x{x.shape[2]} is not 2 mod 4 (img_size must be "
+                "divisible by 4); using the direct 7x7 head", stacklevel=2)
+        if self.s2d_head and s2d_ok:
+            x = subpixel_conv_same(x, self.head.weight.to(dt),
+                                   self.head.bias.to(dt), factor=4)
+        else:
+            x = conv_nhwc(x, self.head, dt)
         x = torch.tanh(x) if self.out_layer == "Tanh" else torch.sigmoid(x)
         return x.reshape((N, T) + x.shape[1:])
 
@@ -172,12 +249,14 @@ class FrameAutoEncoder(nn.Module):
 
     def __init__(self, img_channels: int = 1, ngf: int = 64,
                  n_downsampling: int = 3, num_res_blocks: int = 2,
-                 out_layer: str = "Tanh", dtype=torch.float32):
+                 out_layer: str = "Tanh", learn_3d: bool = False,
+                 s2d_head: bool = False, dtype=torch.float32):
         super().__init__()
         self.encoder = ResnetEncoder(img_channels, ngf, n_downsampling,
-                                     num_res_blocks, dtype=dtype)
+                                     num_res_blocks, learn_3d, dtype=dtype)
         self.decoder = ResnetDecoder(img_channels, ngf, n_downsampling,
-                                     out_layer, dtype=dtype)
+                                     out_layer, s2d_head=s2d_head,
+                                     dtype=dtype)
 
     def forward(self, x):
         feats = self.encoder(x)
@@ -191,12 +270,9 @@ class FrameAutoEncoder(nn.Module):
 
 
 def build_ae(cfg, dtype=torch.float32) -> FrameAutoEncoder:
-    """FrameAutoEncoder from a Config; refuses the options not ported."""
-    if cfg.AE.learn_3d or cfg.AE.s2d_head:
-        raise NotImplementedError(
-            "AE.learn_3d and AE.s2d_head are not ported to PyTorch yet")
+    """FrameAutoEncoder from a Config."""
     return FrameAutoEncoder(
         img_channels=cfg.Dataset.img_channels, ngf=cfg.AE.ngf,
         n_downsampling=cfg.AE.n_downsampling,
         num_res_blocks=cfg.AE.num_res_blocks, out_layer=cfg.AE.out_layer,
-        dtype=dtype)
+        learn_3d=cfg.AE.learn_3d, s2d_head=cfg.AE.s2d_head, dtype=dtype)

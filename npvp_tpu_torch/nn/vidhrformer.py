@@ -18,7 +18,11 @@ drawn from an explicit :class:`~npvp_tpu_torch.nn.layers.Rng` and, with
 a module in eval mode hands its (sites, T, H·D) q/k/v to the hand-written
 kernel (``npvp_tpu_torch.kernels.temporal_attention``), output projection
 included; otherwise it takes the plain attention. The kernel has no
-backward, so nothing that is trained reaches it.
+backward, so nothing that is trained reaches it. With ``exec_mode="int8"``
+every projection and feed-forward product of the input runs as a dynamic
+int8 product (``npvp_tpu_torch.nn.quant``), the attention itself in the
+compute dtype; the positional terms stay in the compute dtype, as in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ from npvp_tpu_torch.nn.layers import (DropPath, LayerNormHWC,
                                       fp32_moments, linear,
                                       scaled_dot_product_attention)
 from npvp_tpu_torch.nn.neural_process import pos_feat_fuse
+from npvp_tpu_torch.nn.quant import int8_contract
 
 
 def _center_pad_amounts(size: int, window: int) -> Tuple[int, int]:
@@ -87,7 +92,9 @@ def _qkv_weights(mha: MultiHeadAttention):
             (mha.wq.bias, mha.wk.bias, mha.wv.bias))
 
 
-def _mm(x, w, dtype):
+def _mm(x, w, dtype, quant: bool = False):
+    if quant:
+        return int8_contract(x, w, out_dtype=dtype)
     return x.to(dtype) @ w.to(dtype)
 
 
@@ -115,7 +122,7 @@ def _attend(qf, kf, vf, mha: MultiHeadAttention, exec_mode: str, dtype,
     heads = lambda t: t.reshape(t.shape[:-1] + (nh, -1))  # noqa: E731
     out = scaled_dot_product_attention(heads(qf), heads(kf), heads(vf),
                                        allow, mha.dropout_rate, rng)
-    return linear(out.flatten(-2), mha.wo, dtype)
+    return linear(out.flatten(-2), mha.wo, dtype, mha.quant)
 
 
 class SpatialWindowAttention(nn.Module):
@@ -129,12 +136,13 @@ class SpatialWindowAttention(nn.Module):
         super().__init__()
         self.window_size, self.exec_mode, self.dtype = (window_size,
                                                         exec_mode, dtype)
-        self.attn = MultiHeadAttention(embed_dim, num_heads, dropout, dtype)
+        self.attn = MultiHeadAttention(embed_dim, num_heads, dropout, dtype,
+                                       quant=exec_mode == "int8")
 
     def forward(self, x, value, pos_beta=None, evt=None,
                 rng: Optional[Rng] = None):
         N, T, H, W, C = x.shape
-        ws, dt = self.window_size, self.dtype
+        ws, dt, q8 = self.window_size, self.dtype, self.attn.quant
         if pos_beta is None:
             xw = window_partition(x.reshape(N * T, H, W, C), ws)
             vw = window_partition(value.reshape(N * T, H, W, C), ws)
@@ -149,13 +157,13 @@ class SpatialWindowAttention(nn.Module):
         a, b = frame_affine_stats(x if evt is None else x + evt)
         xw = window_partition(x.reshape(N * T, H, W, C), ws)
         nW = xw.shape[0] // (N * T)
-        P = _mm(xw, w3, dt).reshape(N, T, nW, ws * ws, 3 * HD)
+        P = _mm(xw, w3, dt, q8).reshape(N, T, nW, ws * ws, 3 * HD)
         pq, pk, pv = P[..., :HD], P[..., HD:2 * HD], P[..., 2 * HD:]
         if evt is not None:
             # the (N, 1, H, W, C) event map is the same at every target time
             evtw = window_partition(evt.reshape(N, H, W, C), ws)
-            evt_qk = _mm(evtw, torch.cat([wq_f, wk_f], -1), dt).reshape(
-                N, 1, nW, ws * ws, 2 * HD)
+            evt_qk = _mm(evtw, torch.cat([wq_f, wk_f], -1), dt,
+                         q8).reshape(N, 1, nW, ws * ws, 2 * HD)
             pq = pq + evt_qk[..., :HD]
             pk = pk + evt_qk[..., HD:]
         beta_w = window_partition(pos_beta.reshape(T, H, W, C).to(dt), ws)
@@ -191,14 +199,17 @@ def _gelu_for(dtype):
 class MlpDWBN(nn.Module):
     """Conv feed-forward: 1×1 → depthwise 3×3 → 1×1 with GELU and a
     per-sample (H, W, C) LayerNorm after each stage, dropout after the last
-    two. The 1×1 convs are ``nn.Linear`` over the channel axis."""
+    two. The 1×1 convs are ``nn.Linear`` over the channel axis, dynamic
+    int8 products with ``quant``; the depthwise conv stays in the compute
+    dtype."""
 
     def __init__(self, in_features: int, hidden_features: int,
                  out_features: int, spatial: Tuple[int, int],
-                 dropout: float = 0.0, dtype=torch.float32):
+                 dropout: float = 0.0, dtype=torch.float32,
+                 quant: bool = False):
         super().__init__()
         H, W = spatial
-        self.dropout, self.dtype = dropout, dtype
+        self.dropout, self.dtype, self.quant = dropout, dtype, quant
         self.fc1 = nn.Linear(in_features, hidden_features)
         self.norm1 = LayerNormHWC((H, W, hidden_features))
         self.dw3x3 = nn.Conv2d(hidden_features, hidden_features, 3,
@@ -213,12 +224,13 @@ class MlpDWBN(nn.Module):
         drop = lambda y, tag: dropout(y, self.dropout,  # noqa: E731
                                       self.training, fold(rng, tag))
         y = x.reshape(N * T, H, W, C)
-        y = act(self.norm1(linear(y, self.fc1, dt)))
+        y = act(self.norm1(linear(y, self.fc1, dt, self.quant)))
         dw = self.dw3x3
         y = F.conv2d(y.permute(0, 3, 1, 2), dw.weight.to(dt),
                      dw.bias.to(dt), 1, 1, 1, dw.groups).permute(0, 2, 3, 1)
         y = drop(act(self.norm2(y)), "drop2")
-        y = drop(act(self.norm3(linear(y, self.fc2, dt))), "drop3")
+        y = drop(act(self.norm3(linear(y, self.fc2, dt, self.quant))),
+                 "drop3")
         return y.reshape(N, T, H, W, -1)
 
 
@@ -251,13 +263,14 @@ class TemporalAttention(nn.Module):
                  exec_mode: str = "xla", dtype=torch.float32):
         super().__init__()
         self.exec_mode, self.dtype = exec_mode, dtype
-        self.attn = MultiHeadAttention(embed_dim, num_heads, dropout, dtype)
+        self.attn = MultiHeadAttention(embed_dim, num_heads, dropout, dtype,
+                                       quant=exec_mode == "int8")
 
     def forward(self, q_in, k_in, v_in, allow=None, pos_beta_q=None,
                 pos_beta_kv=None, evt_q=None, cross_pkv=None,
                 rng: Optional[Rng] = None):
         to_bt = lambda t: t.permute(0, 2, 3, 1, 4)  # noqa: E731
-        dt = self.dtype
+        dt, q8 = self.dtype, self.attn.quant
         if pos_beta_q is None:
             mask = None if allow is None else allow[None, None, None, None]
             out = self.attn(to_bt(q_in), to_bt(k_in), to_bt(v_in), mask=mask,
@@ -277,10 +290,11 @@ class TemporalAttention(nn.Module):
         if k_in is q_in:  # temporal self-attention
             a, b = frame_affine_stats(s_in)
             a5, b5 = to_bt(a).to(dt), to_bt(b)
-            P = _mm(to_bt(q_in), w3, dt)
+            P = _mm(to_bt(q_in), w3, dt, q8)
             pq, pk, pv = P[..., :HD], P[..., HD:2 * HD], P[..., 2 * HD:]
             if evt_q is not None:
-                evt_qk = _mm(to_bt(evt_q), torch.cat([wq_f, wk_f], -1), dt)
+                evt_qk = _mm(to_bt(evt_q), torch.cat([wq_f, wk_f], -1), dt,
+                             q8)
                 pq = pq + evt_qk[..., :HD]
                 pk = pk + evt_qk[..., HD:]
             qf = a5 * pq + (b5 * ones_q + posmm(pos_beta_q, wq_f, bq, T)
@@ -290,7 +304,7 @@ class TemporalAttention(nn.Module):
             vf = pv + bv.to(dt)
         else:  # encoder-decoder cross-attention: v_in is k_in, the memory
             aq, bq_s = frame_affine_stats(s_in)
-            pq = _mm(to_bt(s_in), wq_f, dt)
+            pq = _mm(to_bt(s_in), wq_f, dt, q8)
             qf = (to_bt(aq).to(dt) * pq
                   + (to_bt(bq_s) * ones_q + posmm(pos_beta_q, wq_f, bq, T)
                      ).to(dt))
@@ -298,7 +312,7 @@ class TemporalAttention(nn.Module):
             ak, bk_s = frame_affine_stats(k_in)
             if cross_pkv is None:
                 P = _mm(to_bt(k_in), torch.cat([wk_f, w3[:, 2 * HD:]], -1),
-                        dt)
+                        dt, q8)
                 Pk, Pv = P[..., :HD], P[..., HD:]
             else:
                 Pk, Pv = cross_pkv
@@ -326,7 +340,7 @@ class VidHRFormerBlockEnc(nn.Module):
         super().__init__()
         self.norm_type, self.affine, self.dtype = (norm_type, affine_posfuse,
                                                    dtype)
-        self.dropout = dropout
+        self.dropout, self.quant = dropout, exec_mode == "int8"
         for i in range(1, self.n_norms + 1):
             # torch nn.LayerNorm's eps, as at every reference call site
             self.add_module(f"norm{i}", TokenLayerNorm(embed_dim, 1e-5,
@@ -336,7 +350,8 @@ class VidHRFormerBlockEnc(nn.Module):
                                              window_size, dropout, exec_mode,
                                              dtype)
         self.spatial_ffn = MlpDWBN(embed_dim, ffn_hidden_ratio * embed_dim,
-                                   embed_dim, spatial, dropout, dtype)
+                                   embed_dim, spatial, dropout, dtype,
+                                   self.quant)
         self.temporal_mhsa = TemporalAttention(embed_dim, num_heads, dropout,
                                                exec_mode, dtype)
         self.linear1 = nn.Linear(embed_dim, dim_feedforward)
@@ -352,8 +367,10 @@ class VidHRFormerBlockEnc(nn.Module):
         return dropout(x, self.dropout, self.training, fold(rng, tag))
 
     def _linear_ffn(self, x, rng):
-        y = _gelu_for(self.dtype)(linear(x, self.linear1, self.dtype))
-        y = linear(self._drop(y, rng, "drop_ffn1"), self.linear2, self.dtype)
+        y = _gelu_for(self.dtype)(linear(x, self.linear1, self.dtype,
+                                         self.quant))
+        y = linear(self._drop(y, rng, "drop_ffn1"), self.linear2, self.dtype,
+                   self.quant)
         return self._drop(y, rng, "drop_ffn2")
 
     def forward(self, x, pos_beta, pos_gamma, temporal_allow=None,
@@ -440,7 +457,8 @@ class VidHRFormerBlockDecNAR(VidHRFormerBlockEnc):
         self.enc_dec_attn = TemporalAttention(embed_dim, num_heads, dropout,
                                               exec_mode, dtype)
         self.spatial_ffn1 = MlpDWBN(embed_dim, ffn_hidden_ratio * embed_dim,
-                                    embed_dim, spatial, dropout, dtype)
+                                    embed_dim, spatial, dropout, dtype,
+                                    self.quant)
 
     def forward(self, tgt, query_evt, memory, mem_pos, tgt_pos,
                 self_allow=None, cross_allow=None, cross_pkv=None,
@@ -493,7 +511,9 @@ class VidHRFormerDecoderNAR(nn.Module):
     """Non-autoregressive decoder: the target starts at zeros and every
     target frame is generated in one pass. On the affine path (eval mode)
     the k/v projections of all layers' cross-attentions, which read the
-    same memory, run as one (C → L·2·HD) matmul."""
+    same memory, run as one (C → L·2·HD) matmul; in int8 too, where it is
+    the same function (per-row and per-column scales), though the JAX
+    package projects each layer's memory there."""
 
     def __init__(self, num_layers: int, embed_dim: int, num_heads: int,
                  remat: bool = False, **block_kw):
@@ -501,6 +521,7 @@ class VidHRFormerDecoderNAR(nn.Module):
         self.num_layers, self.remat = num_layers, remat
         self.affine = block_kw.get("affine_posfuse", False)
         self.dtype = block_kw.get("dtype", torch.float32)
+        self.quant = block_kw.get("exec_mode") == "int8"
         for i in range(num_layers):
             self.add_module(f"layer_{i}", VidHRFormerBlockDecNAR(
                 embed_dim, num_heads, **block_kw))
@@ -521,7 +542,7 @@ class VidHRFormerDecoderNAR(nn.Module):
             HD = wk_f.shape[1]
             pieces.append(torch.cat([wk_f, w3[:, 2 * HD:]], -1))
         P = _mm(memory.permute(0, 2, 3, 1, 4), torch.cat(pieces, -1),
-                self.dtype)
+                self.dtype, self.quant)
         for l, block in enumerate(blocks):
             pkv = (P[..., l * 2 * HD:l * 2 * HD + HD],
                    P[..., l * 2 * HD + HD:(l + 1) * 2 * HD])

@@ -1,4 +1,5 @@
-"""Flax variables → the port's modules, and the port's random init.
+"""Flax variables ↔ the port's modules, the weights archive's reader and
+writer, and the port's random init.
 
 A flax variable tree is a nested dict ``{"params": ..., "batch_stats": ...}``
 of numpy arrays, as ``npvp_tpu`` models produce and as the committed weights
@@ -9,6 +10,7 @@ flax path; the layouts are the inverse of
 ``npvp_tpu/tools/torch_converter.py``:
 
 - ``nn.Conv2d``: kernel HWIO → weight OIHW (depthwise kernels too);
+- ``nn.Conv1d`` (the AE's ``temporal_conv``): kernel WIO → weight OIW;
 - ``nn.Conv3d`` (the I3D of FVD): kernel DHWIO → weight OIDHW;
 - ``nn.ConvTranspose2d``: kernel (kh, kw, O, I) → weight (I, O, kh, kw);
 - ``nn.Linear``: Dense (I, O), DenseGeneral (C, H, D) / (H, D, C) and 1×1
@@ -17,12 +19,17 @@ flax path; the layouts are the inverse of
   running_mean/running_var;
 - LayerNorms: scale/bias → weight/bias, (H, W, C) kept as it is;
 - any other parameter (NRMLP ``B``, the attention gate ``gamma``) by name.
+
+:func:`save_weights` writes the modules back in that format, so that the
+JAX package's ``load_weights`` and ``VideoPredictor.from_weights`` read
+the archive unchanged.
 """
 
 from __future__ import annotations
 
 import json
-from typing import Dict, Iterable, Tuple
+from pathlib import Path
+from typing import Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,12 +37,15 @@ from torch import nn
 
 from npvp_tpu_torch.core.checkpoint import load_model_state
 from npvp_tpu_torch.nn.layers import (BatchNorm, LayerNormHWC,
-                                      TokenLayerNorm)
+                                      MultiHeadAttention, TokenLayerNorm)
 from npvp_tpu_torch.nn.neural_process import NRMLP
-from npvp_tpu_torch.nn.resnet_ae import NonLocalAttention2D
+from npvp_tpu_torch.nn.resnet_ae import (NonLocalAttention1D,
+                                         NonLocalAttention2D)
+from npvp_tpu_torch.nn.vidhrformer import MlpDWBN
 
 SEP = "/"
 META_KEY = "__meta__"
+_F16_MAX = 60000.0  # stay clear of float16 inf (65504), as the JAX writer
 
 
 def unflatten(flat: Dict[str, np.ndarray]) -> dict:
@@ -79,6 +89,9 @@ def _leaves(module: nn.Module, params: dict, stats: dict):
         yield "weight", "kernel", params["kernel"].transpose(4, 3, 0, 1, 2)
         if module.bias is not None:
             yield "bias", "bias", params["bias"]
+    elif isinstance(module, nn.Conv1d):
+        yield "weight", "kernel", params["kernel"].transpose(2, 1, 0)
+        yield "bias", "bias", params["bias"]
     elif isinstance(module, nn.Linear):
         yield "weight", "kernel", params["kernel"].reshape(
             module.in_features, module.out_features).T
@@ -161,8 +174,8 @@ def random_init(module: nn.Module, seed: int = 0) -> nn.Module:
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for mod in module.modules():
-            if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d, nn.Conv3d,
-                                nn.Linear)):
+            if isinstance(mod, (nn.Conv1d, nn.Conv2d, nn.ConvTranspose2d,
+                                nn.Conv3d, nn.Linear)):
                 w = mod.weight
                 w.copy_(torch.randn(w.shape, generator=gen)
                         / np.sqrt(w[0].numel()))
@@ -177,7 +190,7 @@ def random_init(module: nn.Module, seed: int = 0) -> nn.Module:
             if isinstance(mod, NRMLP):
                 mod.B.copy_(torch.randn(mod.B.shape, generator=gen)
                             * mod.scale)
-            if isinstance(mod, NonLocalAttention2D):
+            if isinstance(mod, (NonLocalAttention1D, NonLocalAttention2D)):
                 mod.gamma.zero_()
     return module
 
@@ -191,3 +204,117 @@ def load_trained(module: nn.Module, src, half: str) -> nn.Module:
         return load_flax(module, ae_vars if half == "ae" else pred_vars)
     module.load_state_dict(load_model_state(src))
     return module
+
+
+def _linear_kernel(parent: Optional[nn.Module], child: str,
+                   layer: nn.Linear) -> np.ndarray:
+    """An ``nn.Linear`` weight as the flax kernel it came from: DenseGeneral
+    (C, H, D) for the attention's q/k/v and (H, D, C) for its output, a
+    1×1 conv (1, 1, I, O) in MlpDWBN, Dense (I, O) elsewhere."""
+    w = layer.weight.detach().cpu().numpy().T
+    if isinstance(parent, MultiHeadAttention):
+        H = parent.num_heads
+        return (w.reshape(H, -1, w.shape[1]) if child == "wo"
+                else w.reshape(w.shape[0], H, -1))
+    if isinstance(parent, MlpDWBN):
+        return w.reshape((1, 1) + w.shape)
+    return w
+
+
+def _linear_bias(parent, child, layer) -> np.ndarray:
+    b = layer.bias.detach().cpu().numpy()
+    if isinstance(parent, MultiHeadAttention) and child != "wo":
+        return b.reshape(parent.num_heads, -1)
+    return b
+
+
+def to_flax(module: nn.Module) -> dict:
+    """The inverse of :func:`load_flax`: the module's parameters and
+    running statistics as a flax variable tree ``{"params": ...,
+    "batch_stats": ...}`` of float32 numpy arrays, in flax's names and
+    layouts."""
+    out = {"params": {}, "batch_stats": {}}
+    np_ = lambda t: t.detach().cpu().numpy().astype(np.float32)  # noqa
+
+    def put(collection, path, leaf, value):
+        node = out[collection]
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = np.asarray(value, np.float32)
+
+    for name, mod in module.named_modules():
+        if not list(mod.parameters(recurse=False)):
+            continue
+        path = name.split(".") if name else []
+        parent = (module.get_submodule(".".join(path[:-1])) if path
+                  else None)
+        child = path[-1] if path else ""
+        if isinstance(mod, (nn.Conv1d, nn.Conv2d, nn.ConvTranspose2d,
+                            nn.Conv3d)):
+            w = np_(mod.weight)
+            put("params", path, "kernel",
+                w.transpose(tuple(range(2, w.ndim)) + (1, 0)))
+            if mod.bias is not None:
+                put("params", path, "bias", np_(mod.bias))
+        elif isinstance(mod, nn.Linear):
+            put("params", path, "kernel", _linear_kernel(parent, child, mod))
+            put("params", path, "bias", _linear_bias(parent, child, mod))
+        elif isinstance(mod, (BatchNorm, TokenLayerNorm, LayerNormHWC)):
+            put("params", path, "scale", np_(mod.weight))
+            put("params", path, "bias", np_(mod.bias))
+            if isinstance(mod, BatchNorm):
+                put("batch_stats", path, "mean", np_(mod.running_mean))
+                put("batch_stats", path, "var", np_(mod.running_var))
+        else:
+            for leaf, value in mod.named_parameters(recurse=False):
+                put("params", path, leaf, np_(value))
+    return out
+
+
+def _flatten(tree, prefix: str, out: Dict[str, np.ndarray]):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            _flatten(v, f"{prefix}{SEP}{k}", out)
+    else:
+        out[prefix] = np.asarray(tree)
+
+
+def save_weights(path, ae: Optional[nn.Module],
+                 predictor: Optional[nn.Module],
+                 meta: Optional[dict] = None) -> None:
+    """Write the AE and the predictor (either may be None: an AE-only
+    archive) to one compressed ``.npz`` in the JAX package's format: keys
+    ``vars/{ae,pred}/{params,batch_stats}/<flax path>``, float16 where
+    every value's magnitude is below 60000 (else float32), and ``meta`` as
+    JSON bytes under ``__meta__``."""
+    halves = {h: (to_flax(m) if m is not None else {})
+              for h, m in (("ae", ae), ("pred", predictor))}
+    flat: Dict[str, np.ndarray] = {}
+    _flatten(halves, "vars", flat)
+    stored = {}
+    for k, v in flat.items():
+        if v.dtype in (np.float32, np.float64):
+            v = v.astype(np.float32)
+            if np.abs(v).max(initial=0.0) < _F16_MAX:
+                v = v.astype(np.float16)
+        stored[k] = v
+    stored[META_KEY] = np.frombuffer(json.dumps(meta or {}).encode(),
+                                     dtype=np.uint8)
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    np.savez_compressed(path, **stored)
+
+
+def warm_start_state(state, npz_path, which: str):
+    """Adopt a weights archive's ``which`` half ("ae" or "pred") into a
+    train state in place: its parameters and statistics, and its saved
+    step (``<which>_step`` of the meta, so the epoch count derives from
+    it); the optimizer's moments stay fresh, since the archive holds none.
+    Raises ``ValueError`` naming the leaf when a shape differs."""
+    ae_vars, pred_vars, meta = load_weights(npz_path)
+    try:
+        load_flax(state.model, ae_vars if which == "ae" else pred_vars)
+    except (KeyError, ValueError) as e:
+        raise ValueError(f"weights artifact {npz_path}: '{which}': {e} — "
+                         "config mismatch?") from None
+    state.step = int(meta.get(f"{which}_step", 0))
+    return state

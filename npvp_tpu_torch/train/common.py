@@ -22,7 +22,7 @@ from npvp_tpu_torch.core.checkpoint import CheckpointManager
 from npvp_tpu_torch.core.config import Config, load_config
 from npvp_tpu_torch.core.device import resolve_device
 from npvp_tpu_torch.core.train_state import TrainState
-from npvp_tpu_torch.tools.weights import load_flax, load_weights
+from npvp_tpu_torch.tools.weights import warm_start_state
 
 
 def build_argparser(description: str) -> argparse.ArgumentParser:
@@ -89,9 +89,7 @@ def restore_state(state: TrainState, src, half: str) -> TrainState:
     optimizer moments (the archive holds none), as JAX's
     ``warm_start_state``."""
     if str(src).endswith(".npz"):
-        ae_vars, pred_vars, meta = load_weights(src)
-        load_flax(state.model, ae_vars if half == "ae" else pred_vars)
-        state.step = int(meta.get(f"{half}_step", 0))
+        warm_start_state(state, src, half)
     elif Path(src).is_dir():
         CheckpointManager(src).restore(state)
     else:

@@ -25,13 +25,14 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 from _torch_helpers import (port_config, random_variables,  # noqa: E402
-                            tiny_config, to_flax)
+                            tiny_config)
 
 from npvp_tpu_torch.core.checkpoint import CheckpointManager  # noqa: E402
 from npvp_tpu_torch.core.metrics import gif_frame_count  # noqa: E402
 from npvp_tpu_torch.models.predictor import build_predictor  # noqa: E402
 from npvp_tpu_torch.nn.resnet_ae import build_ae  # noqa: E402
-from npvp_tpu_torch.tools.weights import load_flax, random_init  # noqa: E402
+from npvp_tpu_torch.tools.weights import (load_flax, random_init,  # noqa
+                                          to_flax)
 from npvp_tpu_torch.train import stage1_ae as s1  # noqa: E402
 from npvp_tpu_torch.train import stage2_predictor as s2  # noqa: E402
 from npvp_tpu_torch.train.common import restore_state  # noqa: E402
@@ -115,14 +116,14 @@ def two_steps():
     opt_params = jax.tree.map(jnp.asarray, variables["params"])
     opt_state = tx.init(opt_params)
     for batch in _batches():
-        before = to_flax(tae, variables)
+        before = to_flax(tae)
         x = np.concatenate([batch["past"], batch["future"]], axis=1)
         (loss, stats), jgrads = loss_and_grads(
             jax.tree.map(jnp.asarray, before["params"]),
             before["batch_stats"], x)
         got = float(steps.train(tstate, steps.place(batch))["L1_loss_train"])
         upd, opt_state = tx.update(
-            to_flax(_grad_module(tae, grads[-1]), variables)["params"],
+            to_flax(_grad_module(tae, grads[-1]))["params"],
             opt_state, opt_params)
         opt_params = optax.apply_updates(opt_params, upd)
         rows.append(dict(
@@ -141,7 +142,7 @@ def two_steps():
     got_eval = float(steps.eval(tstate, steps.place(batch))["L1_loss_valid"])
     want_eval = float(eval_step(
         state.replace(**{k: jax.tree.map(jnp.asarray, v) for k, v in
-                         to_flax(tae, variables).items()
+                         to_flax(tae).items()
                          if k in ("params", "batch_stats")}),
         batch)["L1_loss_valid"])
     return dict(trainer_losses=trainer_losses, rows=rows,
