@@ -89,8 +89,9 @@ picks some, for a short check), each printing its own lines:
    float16-rounded weights); a synthetic flagship LitPredictor checkpoint
    through the converter (bit-equal forward).
 
-Any failure exits non-zero; without CUDA it exits non-zero at once. The last
-three lines are the kernels' JSON record, the card's name and power limit,
+The phases run in a child process; this one exits with its code once every
+process the run started has ended (see ``supervise``). Any failure exits
+non-zero; without CUDA it exits non-zero at once. The last three lines are the kernels' JSON record, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``.
 """
 
@@ -98,6 +99,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import shutil
 import statistics
 import subprocess
@@ -167,6 +169,114 @@ class SmokeError(RuntimeError):
 def check(cond, msg):
     if not cond:
         raise SmokeError(msg)
+
+
+# set in the process that runs the phases, by the one that supervises it
+CHILD_ENV = "NPVP_CHIP_SMOKE_PHASES"
+
+
+def _descendants():
+    """{pid: command line} of the live processes below this one."""
+    children = {}
+    for entry in Path("/proc").iterdir():
+        if not entry.name.isdigit():
+            continue
+        try:
+            fields = (entry / "stat").read_text().rsplit(")", 1)[1].split()
+        except (OSError, IndexError):
+            continue
+        if fields[0] != "Z":
+            children.setdefault(int(fields[1]), []).append(int(entry.name))
+    found, todo = {}, [os.getpid()]
+    while todo:
+        for pid in children.get(todo.pop(), ()):
+            try:
+                cmd = Path(f"/proc/{pid}/cmdline").read_bytes()
+            except OSError:
+                continue
+            found[pid] = cmd.replace(b"\0", b" ").decode(errors="replace")
+            todo.append(pid)
+    return found
+
+
+def _reap():
+    """Collect the exit status of every child that has ended."""
+    while True:
+        try:
+            pid, _ = os.waitpid(-1, os.WNOHANG)
+        except ChildProcessError:
+            return
+        if pid == 0:
+            return
+
+
+def _wait_for_descendants(seconds, sig=None):
+    """Send ``sig`` (if any) to every process below this one, then wait up
+    to ``seconds`` for them to end; → {pid: command line} of those left."""
+    if sig is not None:
+        for pid in _descendants():
+            try:
+                os.kill(pid, sig)
+            except ProcessLookupError:
+                pass
+    deadline = time.monotonic() + seconds
+    while True:
+        _reap()
+        left = _descendants()
+        if not left or time.monotonic() > deadline:
+            return left
+        time.sleep(0.05)
+
+
+def supervise(argv) -> int:
+    """Run the phases in a child process and return its exit code once
+    every process it started has ended too.
+
+    The loaders' worker pools, ``multiprocessing``'s fork server and its
+    resource tracker outlive the process that started them until they see
+    it gone. This process is their subreaper (Linux ``PR_SET_CHILD_SUBREAPER``),
+    so each of them ends up below it: it gives them ten seconds to end on
+    their own, then SIGTERM, then SIGKILL, and names on stderr each one it
+    had to signal. SIGTERM or SIGINT sent here goes to the child."""
+    import ctypes
+    import signal
+
+    libc = ctypes.CDLL(None, use_errno=True)
+    check(libc.prctl(36, 1, 0, 0, 0) == 0,  # PR_SET_CHILD_SUBREAPER
+          f"prctl(PR_SET_CHILD_SUBREAPER) failed: errno {ctypes.get_errno()}")
+    child = subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                              *argv], env={**os.environ, CHILD_ENV: "1"})
+
+    def forward(signum, frame):
+        child.send_signal(signum)
+
+    for signum in (signal.SIGTERM, signal.SIGINT):
+        signal.signal(signum, forward)
+    code = child.wait()
+
+    def named(procs):
+        return "; ".join(f"{pid} {cmd[:120]}"
+                         for pid, cmd in sorted(procs.items()))
+
+    t0 = time.monotonic()
+    outlived = _descendants()
+    left = _wait_for_descendants(10.0)
+    if outlived:
+        print(f"chip_smoke: {len(outlived)} process(es) outlived the run; "
+              f"{len(outlived) - len(left)} ended on their own within "
+              f"{time.monotonic() - t0:.2f} s: {named(outlived)}",
+              file=sys.stderr)
+    for sig in (signal.SIGTERM, signal.SIGKILL):
+        if not left:
+            break
+        print(f"chip_smoke: {sig.name} to {len(left)} process(es) left "
+              f"running: {named(left)}", file=sys.stderr)
+        left = _wait_for_descendants(5.0, sig)
+    if left:
+        print(f"chip_smoke: processes {sorted(left)} would not stop",
+              file=sys.stderr)
+        return code or 1
+    return code
 
 
 def nvidia_smi_line():
@@ -1928,4 +2038,5 @@ def main(argv) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main(sys.argv[1:]))
+    sys.exit(main(sys.argv[1:]) if os.environ.get(CHILD_ENV)
+             else supervise(sys.argv[1:]))
