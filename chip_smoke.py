@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--phases 1,2]
 
 Builds the temporal-attention kernel from ``npvp_tpu_torch/kernels/csrc``
-with nvcc, then runs ten phases (all of them by default; ``--phases``
+with nvcc, then runs eleven phases (all of them by default; ``--phases``
 picks some, for a short check), each printing its own lines:
 
 1. environment: the card's name and power limit, torch, CUDA, nvcc, the
@@ -88,6 +88,24 @@ picks some, for a short check), each printing its own lines:
    ``save_weights`` → ``from_weights`` (bit-equal to the live model with
    float16-rounded weights); a synthetic flagship LitPredictor checkpoint
    through the converter (bit-equal forward).
+
+11. parallelism (``npvp_tpu_torch.core.distributed``, tensor parallelism,
+   DDP/FSDP, ``VideoPredictor.shard``): (a) SMMNIST Unified NPVP-S as its
+   YAML stands, 10 train steps and a validation pass through
+   ``stage2_predictor.train`` without a process group, in DDP and with
+   ``Env.fsdp`` on an NCCL group of one rank (losses within phase 6's
+   bound of the plain arm's, 40 launches per eval step, ms per step, peak
+   memory; the FSDP checkpoint restored in one process gives the same eval
+   losses); (b) the fused kernel on each head shard of model 2 and 4 at the
+   flagship's window, temporal and cross shapes, wo's columns and bo on
+   shard 0 alone, the shards' sum against the full launch and the twin
+   (bf16 2e-2), ms per shard against the full launch; (c) two ranks on the
+   card over gloo: the flagship through ``VideoPredictor.shard`` at data 2
+   and at model 2 (batch 64, VFP 10→10) against one device's
+   ``freeze_task`` (max|d| < 0.1, 32 launches a forward per rank), and 4
+   stage-2 steps at data 2 against the one-process run at batch 16
+   (phase 6's bound); over NCCL with FSDP where the host has two cards,
+   else one line says it was not run.
 
 The phases run in a child process; this one exits with its code once every
 process the run started has ended (see ``supervise``). Any failure exits
@@ -754,7 +772,8 @@ def eval_kernel_vs_plain(torch, cfg, state, steps, batch):
     plain = build_predictor(cfg, compute_dtype(cfg), exec_mode="xla").to(dev)
     plain.load_state_dict(state.model.state_dict())
     got = steps.eval(state, batch, Rng(123))
-    want = steps.eval(types.SimpleNamespace(model=plain), batch, Rng(123))
+    want = steps.eval(types.SimpleNamespace(model=plain, module=plain), batch,
+                      Rng(123))
     diffs = {k: abs(float(got[k]) - float(want[k])) for k in want}
     bound = {k: min(2e-2, 1e-3 * abs(float(want[k])) + 1e-5) for k in want}
     print("eval losses, kernel vs plain: " + ", ".join(
@@ -1909,12 +1928,477 @@ def phase_serving_tools(torch, ta):
     return out
 
 
+# phase 11 (b): the flagship's three attention call sites, the kernel run
+# on each tensor-parallel head shard
+TP_SITES = [("window", 2560, 16, 16, None),
+            ("temporal", 4096, 10, 10, "hide_last"),
+            ("cross", 4096, 10, 10, None)]
+
+
+def _loss_bound(want):
+    """Phase 6's bound on an eval loss: 1e-3 of its size plus 1e-5, never
+    above 2e-2."""
+    return min(2e-2, 1e-3 * abs(want) + 1e-5)
+
+
+def _largest_gap(got, want):
+    """The largest |got − want| over matching lists of metric dicts, and
+    whether each is within :func:`_loss_bound`; prints each metric's
+    largest gap beside its bound."""
+    gap, ok, by = 0.0, len(got) == len(want), {}
+    for g, w in zip(got, want):
+        for k, v in w.items():
+            d = abs(float(g[k]) - float(v))
+            gap = max(gap, d)
+            ok = ok and d <= _loss_bound(float(v))
+            if d >= by.get(k, (-1.0,))[0]:
+                by[k] = (d, _loss_bound(float(v)))
+    print("    largest gap per metric (bound): " + ", ".join(
+        f"{k} {d:.2e} ({b:.2e})" for k, (d, b) in by.items()))
+    return gap, ok
+
+
+def _one_rank_arms(torch, ta):
+    """(a): SMMNIST Unified NPVP-S as its YAML stands, 10 train steps and a
+    validation pass through ``stage2_predictor.train`` without a group,
+    then on an NCCL group of one rank in DDP and with ``Env.fsdp``."""
+    import torch.distributed as dist
+
+    import numpy as np
+
+    from npvp_tpu_torch.core.checkpoint import CheckpointManager
+    from npvp_tpu_torch.core.config import load_config
+    from npvp_tpu_torch.data.loader import DataModule
+    from npvp_tpu_torch.nn.layers import Rng
+    from npvp_tpu_torch.train import stage2_predictor as s2
+
+    tmp = Path(WORK["dir"]) / "parallel"
+    tmp.mkdir(parents=True, exist_ok=True)
+    yaml = CONFIGS / "config_SMMNIST_Unified_NPVP-S.yaml"
+
+    def config(arm):
+        return load_config(yaml, [
+            "Predictor.exec_mode=pallas", "Predictor.epochs=1",
+            f"Predictor.ckpt_save_dir={tmp}/{arm}/ckpt",
+            f"Predictor.tensorboard_save_dir={tmp}/{arm}/log",
+            "Dataset.dev_set_size=80", "Env.visual_callback=false",
+            f"Env.fsdp={'true' if arm == 'fsdp' else 'false'}"])
+
+    ae_path = str(s2.write_random_ae(config("plain"), tmp))
+    arms = {}
+    # the arms compute the same function; cuDNN's and cuBLAS's
+    # nondeterministic algorithms alone would part their losses
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    for arm in ("plain", "ddp", "fsdp"):
+        cfg = config(arm)
+        cfg.Predictor.resume_AE_ckpt = ae_path
+        record = {"train": [], "eval": [], "ms": [], "launches": []}
+        clock = [0.0, 0]
+
+        def on_step(kind, index, metrics):
+            torch.cuda.synchronize()
+            now, launched = time.perf_counter(), sum(ta.LAUNCHES.values())
+            record[kind].append({k: float(v) for k, v in metrics.items()
+                                 if k != "data_wait_ms"})
+            if kind == "train":
+                record["ms"].append((now - clock[0]) * 1e3)
+            else:
+                record["launches"].append(launched - clock[1])
+            clock[:] = [time.perf_counter(), sum(ta.LAUNCHES.values())]
+
+        t_arm = time.perf_counter()
+        if arm != "plain":
+            dist.init_process_group(
+                "nccl", init_method=f"file://{tmp}/pg_{arm}", rank=0,
+                world_size=1, device_id=torch.device("cuda:0"))
+        try:
+            reset_launches(ta)
+            torch.cuda.reset_peak_memory_stats()
+            clock[0] = time.perf_counter()
+            state = s2.train(cfg, on_step=on_step)
+            torch.cuda.synchronize()
+        finally:
+            if arm != "plain":
+                dist.destroy_process_group()
+        record["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        record["kind"] = type(state.model).__name__
+        record["wall_s"] = time.perf_counter() - t_arm
+        check(len(record["train"]) == 10 and state.step == 10,
+              f"{arm}: {len(record['train'])} train steps")
+        check(len(record["eval"]) >= 1 and all(
+            n == 40 for n in record["launches"]),
+            f"{arm}: eval steps launched {record['launches']}, not 40")
+        check(all(np.isfinite(list(m.values())).all()
+                  for m in record["train"] + record["eval"]),
+              f"{arm}: a loss is not finite")
+        arms[arm] = record
+        if arm == "plain":
+            plain_state = state  # the FSDP checkpoint is restored into it
+        del state
+        torch.cuda.empty_cache()
+    torch.use_deterministic_algorithms(False)
+    out = {}
+    for arm, r in arms.items():
+        print(f"(a) {arm}: train losses "
+              f"{[round(m['loss'], 6) for m in r['train']]}, eval "
+              f"{[round(m['loss_val'], 6) for m in r['eval']]}")
+    bad = []
+    for arm, r in arms.items():
+        line = {"module": r["kind"],
+                "train_ms": statistics.median(r["ms"][3:]),
+                "peak_gib": r["peak_gib"],
+                "eval_launches": r["launches"]}
+        if arm != "plain":
+            tg, tok = _largest_gap(r["train"], arms["plain"]["train"])
+            eg, eok = _largest_gap(r["eval"], arms["plain"]["eval"])
+            line.update(train_gap=tg, eval_gap=eg)
+            if not (tok and eok):
+                bad.append(f"{arm} departs from the plain arm: train gap "
+                           f"{tg:.3e}, eval gap {eg:.3e}")
+        out[arm] = line
+        print(f"(a) {arm:5s} ({r['kind']}): "
+              + (f"largest gap to plain train {line['train_gap']:.3e} eval "
+                 f"{line['eval_gap']:.3e}; " if arm != "plain" else "")
+              + f"{line['train_ms']:.2f} ms/train step (median after 3), "
+              f"{r['wall_s']:.1f} s in train(), "
+              f"peak {line['peak_gib']:.2f} GiB, launches per eval step "
+              f"{r['launches']}")
+
+    check(not bad, "; ".join(bad))
+    # the FSDP arm's checkpoint in the plain arm's one-process state
+    saved = dict(ta.LAUNCHES)
+    cfg = config("fsdp")
+    cfg.Predictor.resume_AE_ckpt = ae_path
+    dtype, dev = s2.compute_dtype(cfg), torch.device("cuda")
+    state = CheckpointManager(tmp / "fsdp" / "ckpt").restore(plain_state)
+    steps = s2.make_steps(cfg, s2.load_frozen_ae(cfg, dtype, dev),
+                          "rand_context", dev)
+    val_rng = Rng(cfg.Env.rand_seed).fold(10 ** 9)
+    got = [{k: float(v) for k, v in steps.eval(
+        state, steps.place(b), val_rng.fold(vi)).items()}
+        for vi, b in zip(range(2), DataModule(cfg).val_loader(
+            "rand_context"))]
+    gap, ok = _largest_gap(got, arms["fsdp"]["eval"][:2])
+    print(f"(a) the FSDP arm's checkpoint restored in one process: eval "
+          f"losses {[round(m['loss_val'], 5) for m in got]}, largest gap "
+          f"{gap:.3e} {'ok' if ok else 'FAIL'}")
+    check(ok, "the FSDP checkpoint restores to other eval losses")
+    ta.LAUNCHES.update(saved)
+    out["fsdp_restore_gap"] = gap
+    return out
+
+
+def _tp_shard_kernel(torch, ta):
+    """(b): the fused kernel on each head shard of model 2 and 4, with its
+    columns of wo and bo on shard 0 alone; the partials' sum against the
+    full fused launch and the plain twin (phase 2's bf16 bound)."""
+    dtype, tol, out, launched = torch.bfloat16, 2e-2, {}, 0
+    for name, B, Tq, Tk, mask in TP_SITES:
+        x = make_inputs(torch, B, Tq, Tk, mask, dtype, True, seed=B + Tk)
+        full_kw = dict(num_heads=NH, wo=x["wo"], bo=x["bo"])
+        args = (x["q"], x["k"], x["v"], x["bias"])
+        full = ta.temporal_attention(*args, **full_kw).float()
+        plain = ta.temporal_attention_plain(*args, **full_kw).float()
+        saved = dict(ta.LAUNCHES)
+        full_ms = time_call(torch, lambda: ta.temporal_attention(
+            *args, **full_kw))
+        ta.LAUNCHES.update(saved)
+        for M in (2, 4):
+            cols = HD // M
+            shards = []
+            for m in range(M):
+                sl = slice(m * cols, (m + 1) * cols)
+                shards.append(((x["q"][..., sl].contiguous(),
+                                x["k"][..., sl].contiguous(),
+                                x["v"][..., sl].contiguous(), x["bias"]),
+                               dict(num_heads=NH // M,
+                                    wo=x["wo"][:, sl].contiguous(),
+                                    bo=x["bo"] if m == 0 else None)))
+            before = ta.LAUNCHES["oproj"]
+            total = sum(ta.temporal_attention(*a, **kw).float()
+                        for a, kw in shards)
+            torch.cuda.synchronize()
+            launched += ta.LAUNCHES["oproj"] - before
+            errs = {}
+            for ref_name, ref in (("full", full), ("plain", plain)):
+                err = (total - ref).abs()
+                errs[ref_name] = err.max().item()
+                check(bool((err <= tol + tol * ref.abs()).all()),
+                      f"{name} model={M}: shards' sum vs {ref_name} "
+                      f"max|d|={errs[ref_name]:.3e}")
+            saved = dict(ta.LAUNCHES)
+            shard_ms = [time_call(torch, lambda a=a, kw=kw:
+                                  ta.temporal_attention(*a, **kw))
+                        for a, kw in shards]
+            ta.LAUNCHES.update(saved)
+            out[f"{name}_model{M}"] = dict(
+                max_abs_vs_full=errs["full"], max_abs_vs_plain=errs["plain"],
+                shard_ms=shard_ms, full_ms=full_ms)
+            print(f"(b) {name:8s} B={B} T={Tq}x{Tk} model={M}: {NH // M} "
+                  f"heads (HD {HD // M}) per shard; sum of shards vs full "
+                  f"max|d|={errs['full']:.3e}, vs plain "
+                  f"{errs['plain']:.3e} (tol {tol}+{tol}|x|); shard ms "
+                  f"{[round(t, 4) for t in shard_ms]} (sum "
+                  f"{sum(shard_ms):.4f}) vs full {full_ms:.4f}")
+    out["launches"] = launched
+    return out
+
+
+def _serve_two(torch, ta, D, rank, dev):
+    """(c) serving: the flagship through ``VideoPredictor.shard`` at data
+    2 × model 1 and data 1 × model 2 against one device's
+    ``freeze_task``."""
+    import numpy as np
+
+    from npvp_tpu_torch.core.config import flagship_config
+    from npvp_tpu_torch.models.inference import VideoPredictor
+    from npvp_tpu_torch.models.predictor import build_predictor
+    from npvp_tpu_torch.nn.resnet_ae import build_ae
+
+    cfg = flagship_config()
+    p, d = cfg.Predictor, cfg.Dataset
+    gen = torch.Generator(device=dev).manual_seed(1)
+    frames = torch.rand((64, 10, d.img_size, d.img_size, d.img_channels),
+                        generator=gen, device=dev) * 2 - 1
+    eps = torch.randn((64, p.max_H, p.max_W, p.embed_dim), generator=gen,
+                      device=dev)
+    to, tp = np.arange(10), np.arange(10, 20)
+
+    one = VideoPredictor.from_random_init(
+        cfg, torch.bfloat16, seed=0, exec_mode="pallas", device=dev)
+    # rank 0 compares; the reference forward also warms both ranks up
+    want = one.freeze_task(to, tp)(frames, eps=eps).float()
+    weights = [m.state_dict() for m in (one.ae, one.predictor)]
+
+    def model():  # the same weights, not yet split
+        ae = build_ae(cfg, torch.bfloat16)
+        pred = build_predictor(cfg, torch.bfloat16, exec_mode="pallas")
+        ae.load_state_dict(weights[0])
+        pred.load_state_dict(weights[1])
+        return VideoPredictor(cfg, ae, pred, device=dev)
+
+    out = {}
+    for data, mdl in ((2, 1), (1, 2)):
+        vp = model().shard(D.make_mesh(data, mdl, device_type="cuda"))
+        fn = vp.freeze_task(to, tp)  # the reference forward warmed up
+        reset_launches(ta)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fn(frames, eps=eps).float()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(ta.LAUNCHES)
+        diff = (got - want).abs()
+        tag = f"data{data}_model{mdl}"
+        out[tag] = dict(max_abs=diff.max().item(),
+                        mean_abs=diff.mean().item(), launches=launches,
+                        ms_per_forward=ms, shape=list(got.shape))
+        check(tuple(got.shape) == tuple(want.shape)
+              and bool(torch.isfinite(got).all()), f"{tag}: bad output")
+        check(launches == {"oproj": 32, "attn": 0},
+              f"{tag}: rank {rank} launched {launches}, not 32")
+        check(out[tag]["max_abs"] < 0.1,
+              f"{tag}: max|d| {out[tag]['max_abs']:.3e} to one device")
+    return out
+
+
+def _train_two(torch, ta, D, rank, dev, tmp, fsdp):
+    """(c) training: 4 stage-2 steps of SMMNIST Unified NPVP-S at data 2
+    (8 rows a rank) against the one-process run at batch 16 (rank 0)."""
+    import torch.distributed as dist
+
+    from npvp_tpu_torch.core.config import load_config
+    from npvp_tpu_torch.data.loader import DataModule
+    from npvp_tpu_torch.models.predictor import build_predictor
+    from npvp_tpu_torch.nn.layers import Rng
+    from npvp_tpu_torch.train import stage2_predictor as s2
+    from npvp_tpu_torch.train.common import parallelize_state
+
+    cfg = load_config(CONFIGS / "config_SMMNIST_Unified_NPVP-S.yaml", [
+        "Predictor.exec_mode=pallas", "Dataset.batch_size=16",
+        "Dataset.dev_set_size=64"])
+    ae_dir = Path(tmp) / f"ae{rank}"
+    ae_dir.mkdir(parents=True, exist_ok=True)
+    cfg.Predictor.resume_AE_ckpt = str(s2.write_random_ae(cfg, ae_dir))
+    dtype = s2.compute_dtype(cfg)
+    ae = s2.load_frozen_ae(cfg, dtype, dev)
+    loader = DataModule(cfg).train_loader("rand_context")
+    batches = [b for _, b in zip(range(4), loader)]
+    loader.close()
+    base = Rng(cfg.Env.rand_seed)
+
+    def run(mesh):
+        state = s2.init_predictor_state(
+            cfg, build_predictor(cfg, dtype).to(dev), 4)
+        state = parallelize_state(state, mesh, fsdp, s2.fsdp_units)
+        steps = s2.make_steps(cfg, ae, "rand_context", dev, mesh)
+        losses, ms = [], []
+        for i, b in enumerate(batches):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = D.all_mean(steps.train(state, steps.place(
+                D.shard_batch(mesh, b)), base.fold(i)), mesh)
+            losses.append({k: float(v) for k, v in m.items()})
+            ms.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        if mesh is None:
+            return losses, ms, peak
+        # one more step under the profiler: the time of the collectives
+        local = steps.place(D.shard_batch(mesh, batches[0]))
+        prof = _collectives(torch, lambda: D.all_mean(steps.train(
+            state, local, base.fold(99)), mesh))
+        return losses, ms, peak, prof
+
+    want = None
+    if rank == 0:  # the one-process run, alone on the card
+        torch.cuda.reset_peak_memory_stats(dev)
+        want = run(None)
+        torch.cuda.empty_cache()
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats(dev)
+    got = run(D.make_mesh(2, 1, 16, "cuda"))
+    if rank != 0:
+        return None
+    gap, ok = _largest_gap(got[0], want[0])
+    check(ok, f"data 2{' + FSDP' if fsdp else ''}: losses depart from the "
+              f"one-process run by {gap:.3e}")
+    return dict(losses=[m["loss"] for m in got[0]],
+                one_process_losses=[m["loss"] for m in want[0]],
+                largest_gap=gap, ms=got[1], one_process_ms=want[1],
+                peak_gib=got[2], one_process_peak_gib=want[2],
+                profiled_step=dict(wall_ms=got[3][0], collectives=got[3][1]))
+
+
+COLLECTIVE_WORDS = ("gloo", "nccl", "all_reduce", "allreduce", "all_gather",
+                    "allgather", "reduce_scatter", "broadcast", "memcpy")
+
+
+def _collectives(torch, fn):
+    """Wall ms of one call of ``fn`` under torch.profiler and the host and
+    device ms of its collective events (and of the copies gloo makes
+    between the card and the host), by name."""
+    from torch.profiler import ProfilerActivity, profile as prof
+
+    torch.cuda.synchronize()
+    with prof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as pr:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    found = {}
+    for ev in pr.key_averages():
+        if not any(w in ev.key.lower() for w in COLLECTIVE_WORDS):
+            continue
+        dev = (getattr(ev, "device_time_total", None)
+               or getattr(ev, "cuda_time_total", 0.0) or 0.0)
+        found[ev.key] = dict(count=ev.count,
+                             host_ms=ev.cpu_time_total / 1e3,
+                             device_ms=dev / 1e3)
+    return wall, found
+
+
+def _rank_main(rank, world, tmp, backend, fsdp):
+    """One rank of (c): gloo ranks share card 0, NCCL ranks take one card
+    each."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(HERE))
+    from npvp_tpu_torch.core import distributed as D
+    from npvp_tpu_torch.kernels import temporal_attention as ta
+
+    index = rank if backend == "nccl" else 0
+    torch.cuda.set_device(index)
+    dev = torch.device(f"cuda:{index}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    D.maybe_init_distributed("cuda", backend=backend,
+                             init_method=f"file://{tmp}/pg_{backend}",
+                             rank=rank, world_size=world)
+    try:
+        t0 = time.perf_counter()
+        out = {"serving": _serve_two(torch, ta, D, rank, dev)}
+        t1 = time.perf_counter()
+        out["training"] = _train_two(torch, ta, D, rank, dev, tmp, fsdp)
+        out["seconds"] = {"serving": t1 - t0,
+                          "training": time.perf_counter() - t1}
+        if rank == 0:
+            torch.save(out, Path(tmp) / f"{backend}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _two_ranks(torch, ta):
+    """(c): two ranks on the one card over gloo (NCCL refuses two ranks on
+    one device); over NCCL with FSDP where the host has two cards."""
+    import torch.multiprocessing as mp
+
+    tmp = Path(WORK["dir"]) / "two_ranks"
+    tmp.mkdir(parents=True, exist_ok=True)
+    runs = [("gloo", False)]
+    if torch.cuda.device_count() >= 2:
+        runs.append(("nccl", True))
+    out = {}
+    for backend, fsdp in runs:
+        t0 = time.perf_counter()
+        mp.start_processes(_rank_main, args=(2, str(tmp), backend, fsdp),
+                           nprocs=2, join=True, start_method="spawn")
+        res = torch.load(tmp / f"{backend}.pt", weights_only=False)
+        where = ("both on cuda:0" if backend == "gloo"
+                 else "cuda:0 and cuda:1")
+        for tag, r in res["serving"].items():
+            print(f"(c) {backend}, 2 ranks {where}: serving {tag}, batch 64 "
+                  f"VFP 10->10: max|d|={r['max_abs']:.3e} mean|d|="
+                  f"{r['mean_abs']:.3e} to one device's freeze_task (bound "
+                  f"0.1), launches per rank per forward {r['launches']}, "
+                  f"{r['ms_per_forward']:.2f} ms/forward")
+        t = res["training"]
+        print(f"(c) {backend}{' + FSDP' if fsdp else ''}: 4 stage-2 steps "
+              f"at data 2 (8 rows a rank): losses "
+              f"{[round(x, 5) for x in t['losses']]} vs one process at "
+              f"batch 16 {[round(x, 5) for x in t['one_process_losses']]}, "
+              f"largest gap {t['largest_gap']:.3e}; ms/step "
+              f"{[round(x, 1) for x in t['ms']]} vs "
+              f"{[round(x, 1) for x in t['one_process_ms']]}; peak "
+              f"{t['peak_gib']:.2f} GiB a rank vs "
+              f"{t['one_process_peak_gib']:.2f} GiB; "
+              f"{time.perf_counter() - t0:.1f} s (rank 0: serving "
+              f"{res['seconds']['serving']:.1f} s, training "
+              f"{res['seconds']['training']:.1f} s)")
+        prof = t["profiled_step"]
+        print(f"(c) {backend}: one train step under torch.profiler: "
+              f"{prof['wall_ms']:.1f} ms wall on rank 0; collectives "
+              f"and their copies: " + "; ".join(
+                  f"{k} x{v['count']} host {v['host_ms']:.2f} ms device "
+                  f"{v['device_ms']:.2f} ms"
+                  for k, v in sorted(prof["collectives"].items())))
+        out[backend] = res
+    if len(runs) == 1:
+        print(f"(c) NCCL over two cards with FSDP: not run, this host has "
+              f"{torch.cuda.device_count()} CUDA device")
+    return out
+
+
+def phase_parallel(torch, ta):
+    """Phase 11: (a) one NCCL rank, plain/DDP/FSDP; (b) the kernel at
+    tensor-parallel head shards; (c) two ranks on the card."""
+    out, t0 = {}, time.perf_counter()
+    for key, part in (("one_rank", _one_rank_arms),
+                      ("tp_shards", _tp_shard_kernel),
+                      ("two_ranks", _two_ranks)):
+        out[key] = part(torch, ta)
+        print(f"-- phase 11 {key}: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+    return out
+
+
 def main(argv) -> int:
     import argparse
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases", help="comma-separated phase numbers "
-                        "(1-10) for a short check; the default runs all and "
+                        "(1-11) for a short check; the default runs all and "
                         "prints the record")
     args = parser.parse_args(argv)
     picked = (None if args.phases is None
@@ -1954,7 +2438,8 @@ def main(argv) -> int:
               ("stage-1 training", phase_stage1),
               ("chain: stage 2, evaluation, serving", phase_chain),
               ("data layer and new models", phase_data_models),
-              ("serving options and tools", phase_serving_tools)]
+              ("serving options and tools", phase_serving_tools),
+              ("parallelism", phase_parallel)]
     if picked is not None:
         phases = [ph for i, ph in enumerate(phases, 1) if i in picked]
     WORK["dir"] = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -1985,6 +2470,7 @@ def main(argv) -> int:
     training = results["stage-2 training"]
     new = results["data layer and new models"]
     tools = results["serving options and tools"]
+    par = results["parallelism"]
     replaces = {"oproj": "npvp_tpu/kernels/temporal_attention.py:136",
                 "attn": "npvp_tpu/kernels/temporal_attention.py:127"}
     run_of = {"oproj": "kernel_oproj", "attn": "kernel_attn"}
@@ -2027,6 +2513,20 @@ def main(argv) -> int:
                 "served_bundle_chunk": (tools["export"]["launches_per_chunk"]
                                         if v == "oproj" else 0),
                 "int8_forward": tools["int8"]["launches"]["int8"][v]},
+            "launches_phase11": {
+                "tp_shards": (par["tp_shards"]["launches"]
+                              if v == "oproj" else 0),
+                "eval_step_one_rank": {
+                    arm: (par["one_rank"][arm]["eval_launches"][0]
+                          if v == "oproj" else 0)
+                    for arm in ("plain", "ddp", "fsdp")},
+                "sharded_serving_forward_per_rank": {
+                    tag: r["launches"][v] for tag, r in
+                    par["two_ranks"]["gloo"]["serving"].items()}},
+            "tp_shards": ({k: {"shard_ms": r["shard_ms"],
+                               "full_ms": r["full_ms"]}
+                           for k, r in par["tp_shards"].items()
+                           if k != "launches"} if v == "oproj" else None),
             "times": "per flagship forward: the sum over its 32 calls, bf16",
             "per_call": acc["per_call"]})
     print(json.dumps({"kernels": kernels}))

@@ -3,7 +3,13 @@
 ``max_to_keep`` retention, and with ``monitor`` the best steps by that
 metric kept (``mode`` 'min' or 'max'), else the latest. An index file beside
 them records each step's metrics; the trainer saves the resolved config in
-the same directory."""
+the same directory.
+
+Under data or tensor parallelism every rank calls :meth:`save` (the
+state's ``state_dict`` gathers the whole model, a collective) and keeps
+the index, so that every rank sees the same best step; only the writer
+(rank 0) writes. The files are the one-process run's, and restore at any
+rank count."""
 
 from __future__ import annotations
 
@@ -25,11 +31,14 @@ def _write_atomic(path: Path, save) -> None:
 
 class CheckpointManager:
     def __init__(self, directory, max_to_keep: int = 5,
-                 monitor: Optional[str] = None, mode: str = "min"):
+                 monitor: Optional[str] = None, mode: str = "min",
+                 writer: bool = True):
         if mode not in ("min", "max"):
             raise ValueError(f"mode must be 'min' or 'max', got {mode!r}")
         self.directory = Path(directory).absolute()
-        self.directory.mkdir(parents=True, exist_ok=True)
+        self.writer = writer
+        if writer:
+            self.directory.mkdir(parents=True, exist_ok=True)
         self.max_to_keep, self.monitor, self.mode = max_to_keep, monitor, mode
         index = self.directory / INDEX
         self._index = ({int(k): v for k, v in json.loads(
@@ -48,15 +57,18 @@ class CheckpointManager:
     def save(self, step: int, state, metrics: Optional[dict] = None) -> None:
         """Write ``state.state_dict()`` for ``step`` and drop the
         checkpoints past ``max_to_keep``."""
-        _write_atomic(self.path(step),
-                      lambda p: torch.save(state.state_dict(), p))
+        saved = state.state_dict()
+        if self.writer:
+            _write_atomic(self.path(step), lambda p: torch.save(saved, p))
         self._index[int(step)] = {k: float(v)
                                   for k, v in (metrics or {}).items()}
         for old in sorted(self._index, key=self._rank)[self.max_to_keep:]:
-            self.path(old).unlink(missing_ok=True)
+            if self.writer:
+                self.path(old).unlink(missing_ok=True)
             del self._index[old]
-        _write_atomic(self.directory / INDEX, lambda p: p.write_text(
-            json.dumps(self._index, indent=1)))
+        if self.writer:
+            _write_atomic(self.directory / INDEX, lambda p: p.write_text(
+                json.dumps(self._index, indent=1)))
 
     def latest_step(self) -> Optional[int]:
         return max(self._index, default=None)

@@ -28,7 +28,7 @@ except Exception:  # pragma: no cover
 class EnvConfig:
     """Runtime environment (reference Env group)."""
 
-    world_size: int = 1  # informational; JAX discovers devices itself
+    world_size: int = 1  # informational; torchrun sets the group's size
     rand_seed: int = 3047
     visual_callback: bool = True
     # TPU-native additions

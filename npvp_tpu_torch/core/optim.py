@@ -43,18 +43,46 @@ def noam_schedule(model_size: int, factor: float,
 
 def clip_subtree_by_global_norm(
         named_params: Iterable[Tuple[str, torch.nn.Parameter]],
-        max_norm: float, predicate: Callable[[str], bool]) -> torch.Tensor:
+        max_norm: float, predicate: Callable[[str], bool],
+        shards=None) -> torch.Tensor:
     """Scale, in place, the gradients of the parameters whose name satisfies
     ``predicate`` by ``min(1, max_norm / max(norm, 1e-12))``, where norm is
     the global norm of those gradients alone; the others pass unchanged.
-    Returns the norm."""
-    grads = [p.grad for name, p in named_params
+    Returns the norm.
+
+    The norm is the whole model's, the one-process norm, on every rank:
+    FSDP's gradient shards (DTensors) are summed over the data axis, and
+    with ``shards`` (``core.tensor_parallel.ParamShards``) the squares of a
+    tensor-parallel slice are summed over the model axis while a replicated
+    parameter counts once."""
+    from torch.distributed.tensor import DTensor
+
+    grads = [(name, p.grad) for name, p in named_params
              if predicate(name) and p.grad is not None]
     if not grads:
         return torch.zeros(())
-    norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
+    local = [g.to_local() if isinstance(g, DTensor) else g
+             for _, g in grads]
+    squares = [(g.float() ** 2).sum() for g in local]
+
+    def reduce(picked, group):
+        """Sum the squares of ``picked`` over ``group``, in one call."""
+        if not picked:
+            return
+        total = torch.stack([squares[i] for i in picked])
+        torch.distributed.all_reduce(total, group=group)
+        for j, i in enumerate(picked):
+            squares[i] = total[j]
+
+    fsdp = [i for i, (_, g) in enumerate(grads) if isinstance(g, DTensor)]
+    if fsdp:  # an FSDP shard's squares, over the data axis
+        reduce(fsdp, grads[fsdp[0]][1].device_mesh.get_group())
+    if shards is not None and shards.model_axis is not None:
+        reduce([i for i, (name, _) in enumerate(grads)
+                if name in shards.plan], shards.model_axis.group)
+    norm = torch.sqrt(sum(squares))
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
-    for g in grads:
+    for g in local:
         g.mul_(scale.to(g.dtype))
     return norm
 

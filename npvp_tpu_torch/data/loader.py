@@ -1,5 +1,5 @@
 """Batch loader and per-dataset data module (port of
-``npvp_tpu/data/loader.py`` for one training process).
+``npvp_tpu/data/loader.py``).
 
 Batches are fixed-shape numpy dicts:
 
@@ -14,6 +14,16 @@ random flips draw from, so a batch does not depend on the number of
 workers; each batch's split comes from ``SeedSequence([seed + 7, e, 0])``
 (split point, then permutation). These are the JAX loader's streams (its
 process 0), so both loaders yield the same batches from the same data.
+
+Under data parallelism, process ``i`` of ``n`` loads the samples
+``idx[i::n]`` of each epoch's order (JAX's split, the DistributedSampler's)
+in batches of ``batch_size`` rows: together the processes' batches are the
+rows of the one-process run's batches of ``n · batch_size``
+(``core.distributed.shard_batch``), and every process counts that run's
+number of batches. The rand-context split is the global batch's, drawn
+from the stream above on every process alike: it is replicated, as
+``shard_batch`` declares it. (The JAX loader seeds it with the process
+index, while its ``shard_batch`` declares it replicated too.)
 
 A producer thread assembles the batches ``prefetch`` ahead of the consumer.
 It fetches a loader's first batch itself, timed; if that took at least
@@ -95,9 +105,11 @@ class BatchLoader:
                  to_idx: Optional[Sequence[int]] = None,
                  tp_idx: Optional[Sequence[int]] = None, seed: int = 0,
                  num_workers: int = 4, drop_last: bool = True,
-                 prefetch: int = 2):
+                 prefetch: int = 2, process_index: int = 0,
+                 process_count: int = 1):
         if mode not in ("pairs", "vfi", "rand_context"):
             raise ValueError(f"unknown mode {mode!r}")
+        self.process_index, self.process_count = process_index, process_count
         self.dataset, self.batch_size, self.shuffle = (dataset, batch_size,
                                                        shuffle)
         self.num_past, self.num_future = num_past, num_future
@@ -137,12 +149,12 @@ class BatchLoader:
         if self.shuffle:
             idx = np.random.default_rng(np.random.SeedSequence(
                 [self.seed, self.epoch])).permutation(idx)
-        return idx
+        return idx[self.process_index::self.process_count]
 
     def __len__(self) -> int:
-        n = len(self.dataset)
-        return (n // self.batch_size if self.drop_last
-                else -(-n // self.batch_size))
+        if self.drop_last:  # the one-process count, on every process
+            return len(self.dataset) // self.process_count // self.batch_size
+        return -(-len(self._indices()) // self.batch_size)
 
     def _make_batch(self, sample_ids, batch_rng, pool
                     ) -> Dict[str, np.ndarray]:
@@ -226,9 +238,18 @@ class DataModule:
     the per-dataset transform pipelines and splits, ``phase: deploy``
     merging train and val, the ``dev_set_size`` cut of train and val, and
     ``len_train_loader`` for the per-batch rate schedule. ``sprites``
-    optionally maps "train"/"test" to SMMNIST sprite banks."""
+    optionally maps "train"/"test" to SMMNIST sprite banks.
 
-    def __init__(self, cfg, sprites: Optional[Dict[str, np.ndarray]] = None):
+    ``Dataset.batch_size`` is the global batch: process ``process_index``
+    of ``process_count`` (the data axis) loads its
+    ``batch_size / process_count`` rows of each."""
+
+    def __init__(self, cfg, sprites: Optional[Dict[str, np.ndarray]] = None,
+                 process_index: int = 0, process_count: int = 1):
+        if cfg.Dataset.batch_size % process_count:
+            raise ValueError(f"batch {cfg.Dataset.batch_size} does not "
+                             f"split over {process_count} processes")
+        self.process_index, self.process_count = process_index, process_count
         self.cfg = cfg
         self.sprites = sprites or {}
         self.train_transform, self.renorm = build_transforms(
@@ -312,11 +333,14 @@ class DataModule:
                       + list(range(total - p.context_num_f, total)))
             tp_idx = list(range(p.context_num_p, total - p.context_num_f))
         return BatchLoader(
-            self.dataset(split), d.batch_size, shuffle=(split == "train"),
+            self.dataset(split), d.batch_size // self.process_count,
+            shuffle=(split == "train"),
             num_past=num_past, num_future=num_future, mode=mode,
             min_lo=p.min_lo, max_lo=p.max_lo, to_idx=to_idx, tp_idx=tp_idx,
             seed=cfg.Env.rand_seed + {"train": 0, "val": 1, "test": 2}[split],
-            num_workers=d.num_workers, drop_last=(split != "test"))
+            num_workers=d.num_workers, drop_last=(split != "test"),
+            process_index=self.process_index,
+            process_count=self.process_count)
 
     def predictor_mode(self) -> str:
         p = self.cfg.Predictor

@@ -163,22 +163,33 @@ def _ptr(t):
 
 
 # wo cast to the compute dtype, one entry per weight tensor, kept until the
-# weight changes in place or is freed
+# weight is freed
 _WO_CAST = {}
 
 
 def wo_operand(wo, dtype):
     """``wo`` in ``dtype``, contiguous: the tensor itself where it already
-    is, else a copy made once per weight and version and reused, so that a
-    serving forward casts no weight at its calls."""
+    is, else a copy made once per weight and value and reused, so that a
+    serving forward casts no weight at its calls. A hit needs the same
+    tensor, version and storage. A weight that is being trained (it
+    requires grad) must also hold the same values: FSDP all-gathers such a
+    weight into the same parameter before each forward and keeps its
+    storage and version counter, so only the values show the change
+    (compared on the device, one read of the weight and a wait for the
+    result). A frozen weight, as served, is not read: the serving forward
+    waits for nothing."""
     if wo.dtype == dtype and wo.is_contiguous():
         return wo
     key = (id(wo), dtype)
     hit = _WO_CAST.get(key)
-    if hit is not None and hit[0]() is wo and hit[1] == wo._version:
-        return hit[2]
+    if (hit is not None and hit[0]() is wo and hit[1] == wo._version
+            and hit[2] == wo.data_ptr()
+            and (hit[3] is None or torch.equal(hit[3], wo))):
+        return hit[4]
+    values = wo.detach().clone() if wo.requires_grad else None
     cast = wo.detach().to(dtype).contiguous()
-    _WO_CAST[key] = (weakref.ref(wo), wo._version, cast)
+    ref = weakref.ref(wo, lambda _: _WO_CAST.pop(key, None))
+    _WO_CAST[key] = (ref, wo._version, wo.data_ptr(), values, cast)
     return cast
 
 

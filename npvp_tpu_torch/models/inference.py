@@ -16,12 +16,20 @@ The pipeline is AE encode → NP predictor → AE decode, run eagerly under
 ``predict_stream`` draw from one generator in their order, or take ``eps``
 as a sequence with one entry each. ``export_task`` writes one task's
 forward as a serving bundle (``torch.export``), which ``serve_exported``
-runs without the model code. Not ported yet: ``shard``.
+runs without the model code.
+
+``shard(mesh)`` serves on several cards (one process each, on a process
+group): the predictor's heads and FFN widths split over the mesh's model
+axis, the AE replicated. Every ``predict*`` call then takes the global
+batch on every rank; each data rank runs its rows (``r::data``) with the
+noise the one-process call draws for them, and all of them return the
+global output.
 """
 
 from __future__ import annotations
 
 import json
+import warnings
 from pathlib import Path
 from typing import Optional, Sequence
 
@@ -29,8 +37,10 @@ import numpy as np
 import torch
 from torch import nn
 
+from npvp_tpu_torch.core import distributed as D
 from npvp_tpu_torch.core.config import Config
 from npvp_tpu_torch.core.device import resolve_device
+from npvp_tpu_torch.core.tensor_parallel import shard_tensor_parallel
 from npvp_tpu_torch.models.coords import coordinate_grid, spatial_index_lists
 from npvp_tpu_torch.models.predictor import NPPredictor, build_predictor
 from npvp_tpu_torch.nn.resnet_ae import FrameAutoEncoder, build_ae
@@ -61,10 +71,14 @@ class VideoPredictor:
                  predictor: NPPredictor, device="cuda"):
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.ae = ae.to(self.device).eval()
-        self.predictor = predictor.to(self.device).eval()
+        # frozen: serving trains nothing (and the kernel's cached wo casts
+        # of frozen weights need no check of their values)
+        self.ae = ae.to(self.device).eval().requires_grad_(False)
+        self.predictor = predictor.to(self.device).eval().requires_grad_(
+            False)
         self.h_list, self.w_list = spatial_index_lists(cfg.Predictor.max_H,
                                                        cfg.Predictor.max_W)
+        self.mesh = None
 
     # -- construction --------------------------------------------------------
     @classmethod
@@ -118,6 +132,19 @@ class VideoPredictor:
         return cls.from_variables(cfg, ae_vars, pred_vars, dtype, exec_mode,
                                   device)
 
+    def shard(self, mesh) -> "VideoPredictor":
+        """Serve on ``mesh`` (``core.distributed.make_mesh``; every rank
+        calls this and then every ``predict*`` call alike): the predictor's
+        attention heads and FFN hidden widths split over the model axis,
+        the AE replicated, each call's batch split over the data axis. A
+        batch that the data axis does not divide runs whole on every rank,
+        with a warning. Returns self (the split is in place)."""
+        if self.mesh is not None:
+            raise ValueError("the predictor is sharded already")
+        shard_tensor_parallel(self.predictor, mesh)
+        self.mesh = mesh
+        return self
+
     # -- core ---------------------------------------------------------------
     def _coords(self, t_list) -> torch.Tensor:
         p = self.cfg.Predictor
@@ -149,10 +176,21 @@ class VideoPredictor:
     def _run(self, frames, oc, tc, eps, generator):
         with torch.inference_mode():
             frames = self._frames(frames)
-            feats = self.ae.encode(frames)
-            out = self.predictor(feats, oc, tc,
-                                 self._eps(frames.shape[0], eps, generator))
-            return self.ae.decode(out.pred_features)
+            eps = self._eps(frames.shape[0], eps, generator)
+            data = D.axis(self.mesh, D.DATA_AXIS)
+            if data is not None and frames.shape[0] % data.size:
+                warnings.warn(
+                    f"batch size {frames.shape[0]} does not divide the data "
+                    f"axis ({data.size} ranks); every rank runs the whole "
+                    "batch: data parallelism is lost for this call",
+                    stacklevel=3)
+                data = None
+            if data is not None:
+                frames = frames[data.rank::data.size]
+                eps = None if eps is None else eps[data.rank::data.size]
+            out = self.predictor(self.ae.encode(frames), oc, tc, eps)
+            pred = self.ae.decode(out.pred_features)
+            return pred if data is None else D.gather_rows(self.mesh, pred)
 
     def predict(self, observed_frames, to_list: Sequence[float],
                 tp_list: Sequence[float], eps=None,
@@ -192,7 +230,11 @@ class VideoPredictor:
         ``batch_size`` clips of ``len(to_list)`` frames, float32 on this
         predictor's device, and for NPVP-S the latent noise (batch_size,
         max_H, max_W, embed_dim) as a plain tensor. The attention kernel
-        stays in it as the op ``npvp::temporal_attention``."""
+        stays in it as the op ``npvp::temporal_attention``. A bundle holds
+        one device's program: a sharded predictor raises."""
+        if self.mesh is not None:
+            raise ValueError("export_task of a sharded VideoPredictor: a "
+                             "serving bundle runs on one device")
         d, p = self.cfg.Dataset, self.cfg.Predictor
         oc, tc = self._coords(to_list), self._coords(tp_list)
         frames_shape = (batch_size, len(to_list), d.img_size, d.img_size,

@@ -19,12 +19,14 @@ from __future__ import annotations
 
 import hashlib
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from npvp_tpu_torch.core.distributed import (all_reduce_sum, copy_to_model,
+                                             reduce_from_model)
 from npvp_tpu_torch.nn.quant import int8_contract
 
 
@@ -33,27 +35,68 @@ class Rng:
     (``fold``), as ``jax.random.fold_in`` derives keys, so a draw depends
     only on where it is made, never on how many draws came before it: a
     block that ``torch.utils.checkpoint`` runs again draws the same masks.
-    Every draw takes a ``torch.Generator`` seeded from the stream."""
+    Every draw takes a ``torch.Generator`` seeded from the stream.
 
-    def __init__(self, seed: int):
+    Under data parallelism a rank holds some rows of the global batch
+    (``core.distributed``: rows ``index::count``); a stream made by
+    :meth:`for_rows` draws the global batch's shape and keeps this rank's
+    rows, so that each row gets the noise the one-process run gives it.
+    A draw's leading axis is the batch, flattened with the batch outermost
+    (a (N·k, …) shape holds k entries per row). A draw for a tensor that
+    tensor parallelism splits (attention heads, the FFN's hidden width)
+    names the split, ``(dim, index, count)``, and keeps its slice of the
+    whole tensor's draw."""
+
+    def __init__(self, seed: int,
+                 rows: Optional[Tuple[int, int, int]] = None):
         self.seed = int(seed) & (2 ** 63 - 1)
+        self.rows = rows
 
     def fold(self, tag) -> "Rng":
         digest = hashlib.blake2b(f"{self.seed}/{tag}".encode(),
                                  digest_size=8).digest()
-        return Rng(int.from_bytes(digest, "little"))
+        return Rng(int.from_bytes(digest, "little"), self.rows)
+
+    def for_rows(self, index: int, count: int, n_local: int) -> "Rng":
+        """This stream, drawing for rows ``index::count`` of a global batch
+        of ``n_local · count`` rows; itself when ``count`` is 1."""
+        return self if count == 1 else Rng(self.seed, (index, count,
+                                                       n_local))
 
     def generator(self, device) -> torch.Generator:
         return torch.Generator(device=device).manual_seed(self.seed)
 
-    def normal(self, shape, device) -> torch.Tensor:
-        return torch.randn(shape, generator=self.generator(device),
-                           device=device)
+    def _draw(self, make, shape, split):
+        shape = tuple(shape)
+        full = list(shape)
+        if split is not None:
+            dim, _, count = split
+            full[dim] *= count
+        if self.rows is not None:
+            index, count, n = self.rows
+            if full[0] % n:
+                raise ValueError(f"draw {shape} does not lead with the "
+                                 f"batch's {n} rows")
+            k = full[0] // n
+            full[0] *= count
+            x = make(full).reshape((n, count, k) + tuple(full[1:]))
+            x = x[:, index].reshape([n * k] + full[1:])
+        else:
+            x = make(full)
+        if split is not None:
+            dim, index, _ = split
+            x = x.narrow(dim, index * shape[dim], shape[dim])
+        return x
 
-    def bernoulli(self, shape, p: float, device) -> torch.Tensor:
+    def normal(self, shape, device, split=None) -> torch.Tensor:
+        return self._draw(lambda s: torch.randn(
+            s, generator=self.generator(device), device=device), shape,
+            split)
+
+    def bernoulli(self, shape, p: float, device, split=None) -> torch.Tensor:
         """float32 mask of ones with probability ``p``, else zeros."""
-        return torch.empty(shape, device=device).bernoulli_(
-            p, generator=self.generator(device))
+        return self._draw(lambda s: torch.empty(s, device=device).bernoulli_(
+            p, generator=self.generator(device)), shape, split)
 
 
 def fold(rng: Optional[Rng], tag) -> Optional[Rng]:
@@ -67,24 +110,27 @@ def _need(rng: Optional[Rng], what: str) -> Rng:
     return rng
 
 
-def dropout(x, rate: float, training: bool, rng: Optional[Rng]):
+def dropout(x, rate: float, training: bool, rng: Optional[Rng], split=None):
     """Elementwise dropout, ``x / keep_prob`` where kept (flax
-    ``nn.Dropout``); the identity at rate 0 or in eval mode."""
+    ``nn.Dropout``); the identity at rate 0 or in eval mode. ``split``
+    names the tensor-parallel split of ``x`` (:class:`Rng`)."""
     if not training or rate == 0.0:
         return x
-    keep = _need(rng, "dropout").bernoulli(x.shape, 1.0 - rate, x.device)
+    keep = _need(rng, "dropout").bernoulli(x.shape, 1.0 - rate, x.device,
+                                           split)
     return x * (keep / (1.0 - rate)).to(x.dtype)
 
 
 def scaled_dot_product_attention(q, k, v, mask=None, dropout_rate=0.0,
-                                 rng: Optional[Rng] = None):
+                                 rng: Optional[Rng] = None, split=None):
     """Attention over (..., L, num_heads, head_dim) tensors.
 
     ``mask`` is boolean with True = allowed, broadcastable to
     (..., num_heads, Lq, Lk); masked logits take ``finfo(float32).min`` (not
     -inf, so a fully masked row stays finite). Logits and softmax are fp32;
     the weights are cast to the compute dtype before the weighted sum. With
-    ``dropout_rate`` > 0 the weights are dropped with a mask from ``rng``."""
+    ``dropout_rate`` > 0 the weights are dropped with a mask from ``rng``
+    (``split``: the heads' tensor-parallel split, on the heads axis)."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     logits = torch.einsum("...qhd,...khd->...hqk", q.float(), k.float())
     logits = logits * scale
@@ -92,7 +138,7 @@ def scaled_dot_product_attention(q, k, v, mask=None, dropout_rate=0.0,
         logits = torch.where(mask, logits,
                              torch.finfo(torch.float32).min)
     weights = torch.softmax(logits, dim=-1).to(q.dtype)
-    weights = dropout(weights, dropout_rate, dropout_rate > 0.0, rng)
+    weights = dropout(weights, dropout_rate, dropout_rate > 0.0, rng, split)
     return torch.einsum("...hqk,...khd->...qhd", weights, v)
 
 
@@ -106,6 +152,23 @@ def linear(x, layer: nn.Linear, dtype, quant: bool = False):
         y = int8_contract(x, layer.weight.t(), out_dtype=dtype)
         return y if bias is None else y + bias
     return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
+
+
+def row_parallel(x, layer: nn.Linear, dtype, quant: bool = False, tp=None):
+    """:func:`linear` of a layer whose input columns tensor parallelism
+    splits (``tp``: the model axis, ``core.distributed.AxisShard``): the
+    partial products summed over the model axis, then the bias, added
+    once. :func:`linear` itself without ``tp``."""
+    if tp is None:
+        return linear(x, layer, dtype, quant)
+    y = reduce_from_model(F.linear(x.to(dtype), layer.weight.to(dtype)), tp)
+    return y if layer.bias is None else y + layer.bias.to(dtype)
+
+
+def tp_split(tp, dim: int):
+    """The ``(dim, index, count)`` split of a tensor-parallel activation
+    for :class:`Rng` draws; None without tensor parallelism."""
+    return None if tp is None else (dim, tp.rank, tp.size)
 
 
 def conv_nhwc(x, conv: nn.Conv2d, dtype):
@@ -122,13 +185,19 @@ class MultiHeadAttention(nn.Module):
     weights of shape (H·D, C) and (C, H·D)). In training mode the attention
     weights are dropped at rate ``dropout``. With ``quant`` the four
     projections are dynamic int8 products; the attention itself stays in
-    the compute dtype."""
+    the compute dtype.
+
+    Under tensor parallelism (``tp``, set by
+    ``core.tensor_parallel.shard_tensor_parallel``) the module holds
+    ``num_heads`` of the heads: the rows of wq/wk/wv and the columns of wo
+    that belong to them; their output is summed over the model axis."""
 
     def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0,
                  dtype=torch.float32, quant: bool = False):
         super().__init__()
         self.num_heads, self.dropout, self.dtype = num_heads, dropout, dtype
         self.quant = quant
+        self.tp = None
         self.wq = nn.Linear(embed_dim, embed_dim)
         self.wk = nn.Linear(embed_dim, embed_dim)
         self.wv = nn.Linear(embed_dim, embed_dim)
@@ -141,16 +210,21 @@ class MultiHeadAttention(nn.Module):
 
     def forward(self, q_in, k_in, v_in, mask=None,
                 rng: Optional[Rng] = None):
-        H = self.num_heads
+        H, tp = self.num_heads, self.tp
         heads = lambda t: t.reshape(t.shape[:-1] + (H, -1))  # noqa: E731
         proj = lambda t, layer: linear(t, layer, self.dtype,  # noqa: E731
                                        self.quant)
-        q = heads(proj(q_in, self.wq))
-        k = heads(proj(k_in, self.wk))
-        v = heads(proj(v_in, self.wv))
+        # one gradient all-reduce per distinct input tensor
+        inputs = {}
+        for t in (q_in, k_in, v_in):
+            inputs.setdefault(id(t), copy_to_model(t, tp))
+        q = heads(proj(inputs[id(q_in)], self.wq))
+        k = heads(proj(inputs[id(k_in)], self.wk))
+        v = heads(proj(inputs[id(v_in)], self.wv))
         out = scaled_dot_product_attention(q, k, v, mask, self.dropout_rate,
-                                           rng)
-        return proj(out.flatten(-2), self.wo)
+                                           rng, tp_split(tp, -3))
+        return row_parallel(out.flatten(-2), self.wo, self.dtype, self.quant,
+                            tp)
 
 
 def fp32_moments(x, dims, keepdim: bool = True):
@@ -169,12 +243,20 @@ class BatchNorm(nn.Module):
     statistics. Training mode takes the batch's fp32 mean and *biased*
     variance (:func:`fp32_moments`) and moves the running statistics toward
     them with flax's rule, ``r = momentum·r + (1 − momentum)·s``, the biased
-    variance included (``torch.nn.BatchNorm`` stores the unbiased one)."""
+    variance included (``torch.nn.BatchNorm`` stores the unbiased one).
+
+    Under data parallelism (``sync``, the data axis, set by
+    :func:`sync_batchnorm`) the training statistics are the global
+    batch's: (Σx, Σx², count) summed over the axis with the sum's gradient,
+    as flax's BatchNorm computes them under JAX's sharded jit and as the
+    reference's ``sync_batchnorm=True`` does; the running statistics then
+    stay equal on every rank."""
 
     def __init__(self, channels: int, eps: float = 1e-5,
                  momentum: float = 0.9, dtype=torch.float32):
         super().__init__()
         self.eps, self.momentum, self.dtype = eps, momentum, dtype
+        self.sync = None
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
@@ -182,8 +264,18 @@ class BatchNorm(nn.Module):
 
     def forward(self, x):
         if self.training:
-            mean, var = fp32_moments(x, tuple(range(x.dim() - 1)),
-                                     keepdim=False)
+            dims = tuple(range(x.dim() - 1))
+            if self.sync is None:
+                mean, var = fp32_moments(x, dims, keepdim=False)
+            else:
+                xf = x.float()
+                count = xf.new_full((1,), xf.numel() / xf.shape[-1])
+                sums = all_reduce_sum(torch.cat(
+                    [xf.sum(dims), (xf * xf).sum(dims), count]), self.sync)
+                C = xf.shape[-1]
+                mean = sums[:C] / sums[-1]
+                var = torch.clamp(sums[C:2 * C] / sums[-1] - mean * mean,
+                                  min=0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.mul_(m).add_((1.0 - m) * mean)
@@ -193,6 +285,16 @@ class BatchNorm(nn.Module):
         a = self.weight * torch.rsqrt(var + self.eps)
         b = self.bias - mean * a
         return x.to(self.dtype) * a.to(self.dtype) + b.to(self.dtype)
+
+
+def sync_batchnorm(module: nn.Module, data_axis) -> nn.Module:
+    """Give every :class:`BatchNorm` in ``module`` the data axis
+    (``core.distributed.axis(mesh, "data")``) over which its training
+    statistics are taken; None takes them per rank. Returns ``module``."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm):
+            m.sync = data_axis
+    return module
 
 
 class TokenLayerNorm(nn.Module):

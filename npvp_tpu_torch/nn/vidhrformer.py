@@ -35,11 +35,12 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from npvp_tpu_torch.kernels import temporal_attention as ta_kernel
+from npvp_tpu_torch.core.distributed import copy_to_model, reduce_from_model
 from npvp_tpu_torch.nn.layers import (DropPath, LayerNormHWC,
                                       MultiHeadAttention, Rng,
                                       TokenLayerNorm, dropout, fold,
-                                      fp32_moments, linear,
-                                      scaled_dot_product_attention)
+                                      fp32_moments, linear, row_parallel,
+                                      scaled_dot_product_attention, tp_split)
 from npvp_tpu_torch.nn.neural_process import pos_feat_fuse
 from npvp_tpu_torch.nn.quant import int8_contract
 
@@ -104,10 +105,12 @@ def _attend(qf, kf, vf, mha: MultiHeadAttention, exec_mode: str, dtype,
     (..., Tk, HD) k/v whose leading axes are sites; ``allow`` is a boolean
     (Tq, Tk) mask. Returns (..., Tq, C). The kernel serves ``exec_mode ==
     "pallas"`` in eval mode only; training takes the plain attention, with
-    its weight dropout."""
+    its weight dropout. Under tensor parallelism q/k/v hold ``mha``'s local
+    heads and the output is summed over the model axis: the fused kernel
+    projects with wo's local columns, and model rank 0 alone adds bo."""
     lead, Tq, HD = qf.shape[:-2], qf.shape[-2], qf.shape[-1]
     Tk = kf.shape[-2]
-    nh = mha.num_heads
+    nh, tp = mha.num_heads, mha.tp
     if exec_mode == "pallas" and not mha.training:
         bias = None if allow is None else ta_kernel.allow_to_bias(allow)
         q, k, v = (qf.reshape(-1, Tq, HD), kf.reshape(-1, Tk, HD),
@@ -115,14 +118,16 @@ def _attend(qf, kf, vf, mha: MultiHeadAttention, exec_mode: str, dtype,
         if ta_kernel.FUSE_OPROJ:
             out = ta_kernel.temporal_attention(
                 q, k, v, bias, num_heads=nh, wo=mha.wo.weight,
-                bo=mha.wo.bias)
-            return out.reshape(lead + (Tq, -1))
+                bo=mha.wo.bias if tp is None or tp.rank == 0 else None)
+            return reduce_from_model(out, tp).reshape(lead + (Tq, -1))
         out = ta_kernel.temporal_attention(q, k, v, bias, num_heads=nh)
-        return linear(out.reshape(lead + (Tq, HD)), mha.wo, dtype)
+        return row_parallel(out.reshape(lead + (Tq, HD)), mha.wo, dtype,
+                            tp=tp)
     heads = lambda t: t.reshape(t.shape[:-1] + (nh, -1))  # noqa: E731
     out = scaled_dot_product_attention(heads(qf), heads(kf), heads(vf),
-                                       allow, mha.dropout_rate, rng)
-    return linear(out.flatten(-2), mha.wo, dtype, mha.quant)
+                                       allow, mha.dropout_rate, rng,
+                                       tp_split(tp, -3))
+    return row_parallel(out.flatten(-2), mha.wo, dtype, mha.quant, tp)
 
 
 class SpatialWindowAttention(nn.Module):
@@ -327,7 +332,9 @@ class TemporalAttention(nn.Module):
 class VidHRFormerBlockEnc(nn.Module):
     """Encoder block: window MHSA → conv FFN → masked temporal MHSA → linear
     FFN, pre-LN, with DropPath on the first two branches and dropout on the
-    others. Eval mode takes the affine-fused path where it applies."""
+    others. Eval mode takes the affine-fused path where it applies. Under
+    tensor parallelism (``tp``) the linear FFN holds a slice of the hidden
+    width: linear1's rows, linear2's columns."""
 
     n_norms = 4
 
@@ -356,6 +363,7 @@ class VidHRFormerBlockEnc(nn.Module):
                                                exec_mode, dtype)
         self.linear1 = nn.Linear(embed_dim, dim_feedforward)
         self.linear2 = nn.Linear(dim_feedforward, embed_dim)
+        self.tp = None
 
     @property
     def fused(self) -> bool:
@@ -363,14 +371,15 @@ class VidHRFormerBlockEnc(nn.Module):
         deterministic``)."""
         return self.affine and not self.training
 
-    def _drop(self, x, rng, tag):
-        return dropout(x, self.dropout, self.training, fold(rng, tag))
+    def _drop(self, x, rng, tag, split=None):
+        return dropout(x, self.dropout, self.training, fold(rng, tag), split)
 
     def _linear_ffn(self, x, rng):
-        y = _gelu_for(self.dtype)(linear(x, self.linear1, self.dtype,
-                                         self.quant))
-        y = linear(self._drop(y, rng, "drop_ffn1"), self.linear2, self.dtype,
-                   self.quant)
+        tp = self.tp
+        y = _gelu_for(self.dtype)(linear(copy_to_model(x, tp), self.linear1,
+                                         self.dtype, self.quant))
+        y = self._drop(y, rng, "drop_ffn1", tp_split(tp, -1))
+        y = row_parallel(y, self.linear2, self.dtype, self.quant, tp)
         return self._drop(y, rng, "drop_ffn2")
 
     def forward(self, x, pos_beta, pos_gamma, temporal_allow=None,

@@ -1,27 +1,42 @@
 """Shared trainer plumbing (port of ``npvp_tpu/train/common.py``): the CLI,
-seeding, the device, the profiler window and the NaN checks.
-``Env.platform`` picks the torch device: "cpu" asks for the CPU, unset
-means the card ("cuda"), which raises without one. ``Env.profile_dir``
-traces train steps 10-14 with ``torch.profiler`` (:class:`StepProfiler`);
-``Env.debug_nans`` turns on autograd's anomaly detection and makes every
-train step check its losses (:func:`check_finite`). The trainers name,
-once at start, the JAX-only ``Env`` fields that a config sets and the port
-does not honour (mesh, FSDP, sequence parallelism, multi-step dispatch).
+seeding, the device, the process group and its mesh, the profiler window
+and the NaN checks. ``Env.platform`` picks the torch device: "cpu" asks
+for the CPU, unset means the card ("cuda"), which raises without one.
+Under ``torchrun`` (or in a process that has joined a group already) the
+trainers run on the group: ``Env.mesh_shape`` lays the ranks out as a
+(data, model) mesh, the model replicated over the data axis in DDP, or
+fully sharded with ``Env.fsdp`` (:func:`parallelize_state`); each
+process's device is ``cuda:LOCAL_RANK``.
+
+    torchrun --nproc_per_node=4 -m npvp_tpu_torch.train.stage2_predictor \
+        --config_path <yaml> --override "Env.mesh_shape=[[data,2],[model,2]]" \
+        Env.fsdp=true
+
+``Env.profile_dir`` traces train steps 10-14 with ``torch.profiler``
+(:class:`StepProfiler`); ``Env.debug_nans`` turns on autograd's anomaly
+detection and makes every train step check its losses
+(:func:`check_finite`). The trainers name, once at start, the JAX-only
+``Env`` field that a config sets and the port does not honour
+(``sequence_parallel``).
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
 from pathlib import Path
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
+from npvp_tpu_torch.core import distributed as D
 from npvp_tpu_torch.core.checkpoint import CheckpointManager
 from npvp_tpu_torch.core.config import Config, load_config
 from npvp_tpu_torch.core.device import resolve_device
+from npvp_tpu_torch.core.tensor_parallel import shard_tensor_parallel
 from npvp_tpu_torch.core.train_state import TrainState
+from npvp_tpu_torch.nn.layers import sync_batchnorm
 from npvp_tpu_torch.tools.weights import warm_start_state
 
 
@@ -60,18 +75,16 @@ def config_device(cfg: Config) -> torch.device:
 def unhonoured_env_fields(cfg: Config) -> list:
     """``Env`` fields set away from their defaults that only the JAX
     package reads."""
-    e = cfg.Env
-    mesh = tuple(tuple(axis) for axis in e.mesh_shape)
-    set_fields = {"fsdp": e.fsdp, "mesh_shape": mesh != (("data", -1),),
-                  "sequence_parallel": e.sequence_parallel,
-                  "steps_per_dispatch": e.steps_per_dispatch > 1}
-    return [name for name, on in set_fields.items() if on]
+    return ["sequence_parallel"] if cfg.Env.sequence_parallel else []
 
 
-def setup(cfg: Config) -> torch.device:
+def setup(cfg: Config):
     """Seed numpy and torch from ``Env.rand_seed``, set autograd's anomaly
     detection to ``Env.debug_nans``, name the set ``Env`` fields the port
-    ignores, and return the device of ``Env.platform``."""
+    ignores, join the process group when there is one, and return
+    (device, mesh): the device of ``Env.platform`` (``cuda:LOCAL_RANK`` on
+    a group) and the (data, model) ``DeviceMesh`` of ``Env.mesh_shape``,
+    or None for a run of one process that no launcher started."""
     ignored = unhonoured_env_fields(cfg)
     if ignored:
         print("Env fields set but not honoured by the PyTorch port: "
@@ -79,7 +92,96 @@ def setup(cfg: Config) -> torch.device:
     torch.autograd.set_detect_anomaly(cfg.Env.debug_nans)
     np.random.seed(cfg.Env.rand_seed)
     torch.manual_seed(cfg.Env.rand_seed)
-    return config_device(cfg)
+    device = config_device(cfg)
+    if not D.maybe_init_distributed(device.type):
+        return device, None
+    axes = dict(tuple(a) for a in cfg.Env.mesh_shape)
+    mesh = D.make_mesh(axes.get("data", -1), axes.get("model", 1),
+                       cfg.Dataset.batch_size, device.type)
+    if (cfg.Predictor.param_free_norm_type in ("batch", "syncbatch")
+            and D.axis(mesh, D.DATA_AXIS) is not None):
+        raise ValueError("param_free_norm_type "
+                         f"{cfg.Predictor.param_free_norm_type!r} takes "
+                         "batch statistics, which the port does not "
+                         "gather over the data axis")
+    return D.local_device(device.type), mesh
+
+
+def data_split(mesh):
+    """(process_index, process_count) of this rank on the data axis: how
+    the loaders split the global batch."""
+    shard = D.axis(mesh, D.DATA_AXIS)
+    return (0, 1) if shard is None else (shard.rank, shard.size)
+
+
+def parallelize_state(state: TrainState, mesh, fsdp: bool, units=(),
+                      tensor_parallel: bool = True) -> TrainState:
+    """``state`` (a one-process state: fresh, or restored from a
+    checkpoint) laid out over ``mesh``, in place: the model split over the
+    model axis (``tensor_parallel``), its BatchNorms given the data axis,
+    then wrapped in DDP or, with ``fsdp``, fully sharded unit by unit
+    (``units(model)``: the modules that FSDP shards before the root); the
+    optimizer moved onto the new parameters; the state's weights and
+    moments cut into this rank's pieces. Without a mesh the
+    state is returned as it is."""
+    if mesh is None:
+        return state
+    full = state.state_dict()  # copied: the wrapping may reuse storage
+    full = dict(full, model={k: v.detach().clone()
+                             for k, v in full["model"].items()},
+                optimizer=copy.deepcopy(full["optimizer"]))
+    model = state.module
+    shards = (shard_tensor_parallel(model, mesh) if tensor_parallel
+              else shard_tensor_parallel(model, None))
+    sync_batchnorm(model, D.axis(mesh, D.DATA_AXIS))
+    state.model = D.wrap_data_parallel(model, mesh, fsdp,
+                                       units(model) if units else ())
+    params, start = list(model.parameters()), 0
+    for group in state.optimizer.param_groups:  # the same order, new tensors
+        n = len(group["params"])
+        group["params"] = params[start:start + n]
+        start += n
+    state.optimizer.state.clear()
+    state.shards = shards
+    state.load_state_dict(full)
+    return state
+
+
+def run_train_chunk(state: TrainState, step, chunk, mesh, meters,
+                    on_step, loader) -> None:
+    """``Env.steps_per_dispatch``: run ``step(batch)`` (one train step,
+    → this rank's metrics) over the batches of ``chunk``, then fetch the
+    metrics: the data axis's means of all of them in one all-reduce, into
+    ``meters`` with the loader's ``data_wait_ms``, and ``on_step("train",
+    step_number, metrics)`` for each."""
+    out = [step(batch) for batch in chunk]
+    flat = D.all_mean({f"{i}/{k}": v for i, m in enumerate(out)
+                       for k, v in m.items()}, mesh)
+    first = state.step - len(out) + 1
+    for i, m in enumerate(out):
+        metrics = {k: flat[f"{i}/{k}"] for k in m}
+        metrics["data_wait_ms"] = loader.last_wait_ms
+        meters.update(metrics)
+        if on_step is not None:
+            on_step("train", first + i, metrics)
+
+
+def train_chunks(loader, K: int, state: TrainState, max_steps, profiler):
+    """The loader's batches in chunks of ``K`` (fewer at the end of the
+    epoch or at ``max_steps``), opening the profiler window at the step
+    each batch will run as."""
+    chunk = []
+    for batch in loader:
+        profiler.maybe_start_profiler(state.step + len(chunk))
+        chunk.append(batch)
+        if len(chunk) == K or (max_steps is not None
+                               and state.step + len(chunk) >= max_steps):
+            yield chunk
+            chunk = []
+            if max_steps is not None and state.step >= max_steps:
+                return
+    if chunk:
+        yield chunk
 
 
 def restore_state(state: TrainState, src, half: str) -> TrainState:

@@ -21,8 +21,13 @@ for its batch on the loader's prefetch queue. ``Env.profile_dir`` traces
 steps 10-14; ``Env.debug_nans`` checks each step's L1 before its backward
 pass.
 
-JAX's ``Env.steps_per_dispatch`` scan is bit-identical to its per-step loop
-and is not ported: the steps run one by one.
+``Env.steps_per_dispatch = K`` runs K steps before their metrics are
+fetched, with the losses of K = 1. On a process group (``torchrun``) the AE
+is replicated over the data axis in DDP, or fully sharded with
+``Env.fsdp`` (encoder and decoder as units), never split over a model axis
+(JAX's ``tp=False``); its BatchNorms take the global batch's statistics,
+the metrics are the global batch's means, and rank 0 alone logs and writes
+checkpoints and GIFs.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from npvp_tpu_torch.core import distributed as D
 from npvp_tpu_torch.core.checkpoint import CheckpointManager
 from npvp_tpu_torch.core.config import Config
 from npvp_tpu_torch.core.metrics import (AverageMeters, MetricsLogger,
@@ -46,8 +52,10 @@ from npvp_tpu_torch.nn.resnet_ae import FrameAutoEncoder, build_ae
 from npvp_tpu_torch.tools.weights import random_init
 from npvp_tpu_torch.train.common import (StepProfiler, build_argparser,
                                          check_finite, compute_dtype,
-                                         load_cli_config, restore_state,
-                                         setup)
+                                         data_split, load_cli_config,
+                                         parallelize_state, restore_state,
+                                         run_train_chunk, setup,
+                                         train_chunks)
 
 
 def init_state(cfg: Config, ae: FrameAutoEncoder) -> TrainState:
@@ -85,9 +93,9 @@ def make_steps(device, debug_nans: bool = False) -> Steps:
         return {"L1_loss_train": loss.detach()}
 
     def vis_step(state: TrainState, batch):
-        state.model.eval()
+        state.module.eval()
         with torch.no_grad():
-            return state.model(clips(batch))[0]
+            return state.module(clips(batch))[0]
 
     def eval_step(state: TrainState, batch):
         return {"L1_loss_valid": l1_loss(vis_step(state, batch),
@@ -106,64 +114,73 @@ def train(cfg: Config, max_steps: Optional[int] = None, sprites=None,
     ``sprites`` optionally maps "train"/"test" to SMMNIST sprite banks;
     ``on_step(kind, index, metrics)`` is called after every "train" and
     "eval" step."""
-    device = setup(cfg)
+    device, mesh = setup(cfg)
+    main_rank = D.is_main_process()
     a = cfg.AE
     ae = build_ae(cfg, compute_dtype(cfg)).to(device)
-    dm = DataModule(cfg, sprites)
+    dm = DataModule(cfg, sprites, *data_split(mesh))
     train_loader, val_loader = dm.train_loader(), dm.val_loader()
     state = init_state(cfg, ae)
-    print(f"AE parameters: {param_count(ae) / 1e6:.2f}M | device={device}")
+    if main_rank:
+        print(f"AE parameters: {param_count(ae) / 1e6:.2f}M | "
+              f"device={device} | mesh={mesh}")
     start_epoch = a.start_epoch
     if a.resume_ckpt:
         restore_state(state, a.resume_ckpt, "ae")
         start_epoch = state.step // max(1, dm.len_train_loader or 1)
+    state = parallelize_state(
+        state, mesh, cfg.Env.fsdp, lambda m: [m.encoder, m.decoder],
+        tensor_parallel=False)
 
     ckpt = CheckpointManager(a.ckpt_save_dir, max_to_keep=5,
-                             monitor="L1_loss_valid", mode="min")
-    logger = MetricsLogger(a.tensorboard_save_dir)
+                             monitor="L1_loss_valid", mode="min",
+                             writer=main_rank)
+    logger = MetricsLogger(a.tensorboard_save_dir) if main_rank else None
     steps = make_steps(device, cfg.Env.debug_nans)
-    cfg.save(f"{a.ckpt_save_dir}/config.json")
-    profiler = StepProfiler(cfg.Env.profile_dir)
+    if main_rank:
+        cfg.save(f"{a.ckpt_save_dir}/config.json")
+    profiler = StepProfiler(cfg.Env.profile_dir if main_rank else None)
+    K = max(1, cfg.Env.steps_per_dispatch)
     try:
         for epoch in range(start_epoch, a.epochs):
             train_loader.set_epoch(epoch)
             meters = AverageMeters()
-            for batch in train_loader:
-                profiler.maybe_start_profiler(state.step)
-                metrics = steps.train(state, steps.place(batch))
-                metrics["data_wait_ms"] = train_loader.last_wait_ms
-                meters.update(metrics)
-                if on_step is not None:
-                    on_step("train", state.step, metrics)
-                if max_steps is not None and state.step >= max_steps:
-                    break
+            for chunk in train_chunks(train_loader, K, state, max_steps,
+                                      profiler):
+                run_train_chunk(
+                    state, lambda b: steps.train(state, steps.place(b)),
+                    chunk, mesh, meters, on_step, train_loader)
             val_meters = AverageMeters()
             for vi, batch in enumerate(val_loader):
-                metrics = steps.eval(state, steps.place(batch))
+                metrics = D.all_mean(steps.eval(state, steps.place(batch)),
+                                     mesh)
                 val_meters.update(metrics)
                 if on_step is not None:
                     on_step("eval", vi, metrics)
             scalars = {**meters.averages(), **val_meters.averages()}
-            logger.log_scalars(state.step, scalars)
-            print(f"epoch {epoch}: " + " ".join(
-                f"{k}={v:.5f}" for k, v in scalars.items()))
+            if main_rank:
+                logger.log_scalars(state.step, scalars)
+                print(f"epoch {epoch}: " + " ".join(
+                    f"{k}={v:.5f}" for k, v in scalars.items()))
             ckpt.save(state.step, state, metrics={
                 "L1_loss_valid": scalars.get("L1_loss_valid", 0.0)})
             if (cfg.Env.visual_callback
                     and epoch % max(1, a.log_per_epochs) == 0):
                 batch = next(iter(val_loader))
                 rec = steps.vis(state, steps.place(batch))
-                save_clip_gifs(
-                    Path(a.tensorboard_save_dir) / f"epoch_{epoch}.gif",
-                    {"gt": np.concatenate([batch["past"][0],
-                                           batch["future"][0]]),
-                     "rec": rec[0].float().cpu().numpy()},
-                    renorm=dm.renorm)
+                if main_rank:
+                    save_clip_gifs(
+                        Path(a.tensorboard_save_dir) / f"epoch_{epoch}.gif",
+                        {"gt": np.concatenate([batch["past"][0],
+                                               batch["future"][0]]),
+                         "rec": rec[0].float().cpu().numpy()},
+                        renorm=dm.renorm)
             if max_steps is not None and state.step >= max_steps:
                 break
     finally:
         profiler.stop_profiler()
-        logger.close()
+        if logger is not None:
+            logger.close()
         train_loader.close()
         val_loader.close()
     return state

@@ -16,9 +16,20 @@ model: full-``max_T`` clips with per-batch masks).
 The eval step runs the predictor in eval mode under ``torch.no_grad()``,
 where ``exec_mode: pallas`` sends its attention to the hand-written kernel.
 Step ``s`` draws its noise from ``Rng(Env.rand_seed).fold(s)``, as JAX draws
-from ``fold_in(base_rng, s)``; ``Env.steps_per_dispatch`` > 1 still runs the
-steps one by one, which JAX's scan over a chunk of steps equals by
-construction.
+from ``fold_in(base_rng, s)``. ``Env.steps_per_dispatch = K`` runs K steps
+before their metrics are fetched (one all-reduce of the K steps' metrics
+on a group), as JAX's scan over a chunk of K steps; the losses are those
+of K = 1.
+
+On a process group (``torchrun``; ``train.common.setup``) the predictor is
+split over the mesh's model axis, then replicated over its data axis in DDP
+or fully sharded (``Env.fsdp``; :func:`fsdp_units`); each rank loads its
+rows of the global batch and draws their noise as the one-process run
+does, the EventEncoders' BatchNorms take the global batch's statistics,
+and the metrics are the global batch's means. The eval step calls the
+model itself, not DDP's forward. Rank 0 alone logs, writes checkpoints
+(the one-process files, gathered) and GIFs; every rank takes the same best
+checkpoint.
 
 Every ``Predictor.log_per_epochs`` epochs, under ``Env.visual_callback``,
 one validation clip and its prediction (eval mode, so the kernel serves it
@@ -29,8 +40,8 @@ for its batch on the loader's prefetch queue (logged per epoch as
 ``data_wait_ms_train``). ``Env.profile_dir`` traces steps 10-14;
 ``Env.debug_nans`` checks each step's losses before its backward pass.
 
-Not ported yet: the GAN steps, FSDP and the device mesh (the trainer names
-such ``Env`` fields when a config sets them).
+Not ported yet: the GAN steps and sequence parallelism (the trainer names
+``Env.sequence_parallel`` when a config sets it).
 """
 
 from __future__ import annotations
@@ -44,6 +55,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from npvp_tpu_torch.core import distributed as D
 from npvp_tpu_torch.core.checkpoint import CheckpointManager, load_model_state
 from npvp_tpu_torch.core.config import Config
 from npvp_tpu_torch.core.metrics import (AverageMeters, MetricsLogger,
@@ -60,12 +72,16 @@ from npvp_tpu_torch.models.coords import (coordinate_grid,
 from npvp_tpu_torch.models.predictor import NPPredictor, build_predictor
 from npvp_tpu_torch.nn.layers import Rng
 from npvp_tpu_torch.nn.losses import kl_divergence, l1_loss
+from npvp_tpu_torch.nn.neural_process import NRMLP, EventEncoder
 from npvp_tpu_torch.nn.resnet_ae import FrameAutoEncoder, build_ae
+from npvp_tpu_torch.nn.vidhrformer import VidHRFormerDecoderNAR
 from npvp_tpu_torch.tools.weights import load_trained, random_init
 from npvp_tpu_torch.train.common import (StepProfiler, build_argparser,
                                          check_finite, compute_dtype,
-                                         load_cli_config, restore_state,
-                                         setup)
+                                         data_split, load_cli_config,
+                                         parallelize_state, restore_state,
+                                         run_train_chunk, setup,
+                                         train_chunks)
 
 
 def load_frozen_ae(cfg: Config, dtype, device) -> FrameAutoEncoder:
@@ -118,6 +134,20 @@ def merge_det_init(det_state: dict, sto_state: dict) -> dict:
             for k, v in sto_state.items()}
 
 
+def fsdp_units(predictor: NPPredictor) -> list:
+    """The modules that FSDP shards as units before the root: the NAR
+    decoder (its layers' cross-attention projections are read together, by
+    the hoist of its eval path), each EventEncoder and the NRMLP; the root
+    holds the EVT-Former and the final norm. A unit's backward hooks change
+    the order in which autograd sums the gradients of activations that
+    several units read (the memory, the positional terms): as units, the
+    decoder's or the EVT-Former's blocks parted the gradients from the
+    one-process run by an ulp, which bf16 training grows; this layout
+    keeps them equal at one rank."""
+    return [m for m in predictor.modules()
+            if isinstance(m, (VidHRFormerDecoderNAR, EventEncoder, NRMLP))]
+
+
 class Steps(NamedTuple):
     train: Callable     # (state, batch, rng) -> metrics
     eval: Callable      # (state, batch, rng) -> metrics with "_val" keys
@@ -125,8 +155,20 @@ class Steps(NamedTuple):
 
 
 def make_steps(cfg: Config, ae: FrameAutoEncoder, mode: str,
-               device) -> Steps:
+               device, mesh=None) -> Steps:
+    """The train and eval steps of ``mode``. With a ``mesh`` a step takes
+    this rank's rows of the global batch (``core.distributed
+    .shard_batch``) and the one-process run's ``rng``, and returns this
+    rank's metrics (the trainer averages them over the data axis)."""
     p = cfg.Predictor
+    data = D.axis(mesh, D.DATA_AXIS)
+
+    def rows(rng: Rng, batch) -> Rng:
+        if data is None:
+            return rng
+        n = next(v.shape[0] for k, v in batch.items()
+                 if not k.endswith("_mask"))
+        return rng.for_rows(data.rank, data.size, n)
     stochastic = p.stochastic
 
     def encode(frames):
@@ -170,7 +212,7 @@ def make_steps(cfg: Config, ae: FrameAutoEncoder, mode: str,
 
     def train_step(state: TrainState, batch, rng: Rng):
         state.model.train()
-        loss, metrics = forward(state.model, batch, rng)
+        loss, metrics = forward(state.model, batch, rows(rng, batch))
         if cfg.Env.debug_nans:
             check_finite(metrics, state.step)
         loss.backward()
@@ -178,9 +220,9 @@ def make_steps(cfg: Config, ae: FrameAutoEncoder, mode: str,
         return {k: v.detach() for k, v in metrics.items()}
 
     def eval_step(state: TrainState, batch, rng: Rng):
-        state.model.eval()
+        state.module.eval()
         with torch.no_grad():
-            _, metrics = forward(state.model, batch, rng)
+            _, metrics = forward(state.module, batch, rows(rng, batch))
         return {k + "_val": v for k, v in metrics.items()}
 
     def place(batch):
@@ -194,13 +236,16 @@ def train(cfg: Config, max_steps: Optional[int] = None, sprites=None,
     """Train for ``Predictor.epochs`` epochs (or ``max_steps`` steps),
     validating and checkpointing after each epoch. ``sprites`` optionally
     maps "train"/"test" to SMMNIST sprite banks; ``on_step(kind, index,
-    metrics)`` is called after every "train" and "eval" step, for timing."""
-    device = setup(cfg)
+    metrics)`` is called after every "train" and "eval" step, for timing
+    (with ``Env.steps_per_dispatch`` K > 1, for the K train steps of a
+    chunk once they have all run)."""
+    device, mesh = setup(cfg)
+    main_rank = D.is_main_process()
     dtype = compute_dtype(cfg)
     p = cfg.Predictor
     ae = load_frozen_ae(cfg, dtype, device)
     predictor = build_predictor(cfg, dtype).to(device)
-    dm = DataModule(cfg, sprites)
+    dm = DataModule(cfg, sprites, *data_split(mesh))
     mode = dm.predictor_mode()
     train_loader, val_loader = dm.train_loader(mode), dm.val_loader(mode)
     state = init_predictor_state(cfg, predictor, dm.len_train_loader or 1)
@@ -221,50 +266,52 @@ def train(cfg: Config, max_steps: Optional[int] = None, sprites=None,
         predictor.load_state_dict(merge_det_init(
             {k: v for k, v in det_state.items() if k in params},
             predictor.state_dict()))
-    print(f"Predictor parameters: {param_count(predictor) / 1e6:.2f}M | "
-          f"mode={mode} | device={device}")
+    if main_rank:
+        print(f"Predictor parameters: {param_count(predictor) / 1e6:.2f}M "
+              f"| mode={mode} | device={device} | mesh={mesh}")
 
     ckpt = CheckpointManager(p.ckpt_save_dir,
                              max_to_keep=p.ckpt_max_keep or p.epochs,
-                             monitor="loss_val", mode="min")
+                             monitor="loss_val", mode="min",
+                             writer=main_rank)
     start_epoch = p.start_epoch
     if p.resume_ckpt:
         restore_state(state, p.resume_ckpt, "pred")
         start_epoch = state.step // max(1, dm.len_train_loader or 1)
+    state = parallelize_state(state, mesh, cfg.Env.fsdp, fsdp_units)
 
-    logger = MetricsLogger(p.tensorboard_save_dir)
-    steps = make_steps(cfg, ae, mode, device)
-    cfg.save(f"{p.ckpt_save_dir}/config.json")
+    logger = MetricsLogger(p.tensorboard_save_dir) if main_rank else None
+    steps = make_steps(cfg, ae, mode, device, mesh)
+    if main_rank:
+        cfg.save(f"{p.ckpt_save_dir}/config.json")
     base_rng = Rng(cfg.Env.rand_seed)
-    profiler = StepProfiler(cfg.Env.profile_dir)
+    profiler = StepProfiler(cfg.Env.profile_dir if main_rank else None)
+    K = max(1, cfg.Env.steps_per_dispatch)
     try:
         for epoch in range(start_epoch, p.epochs):
             train_loader.set_epoch(epoch)
             meters = AverageMeters()
-            for batch in train_loader:
-                profiler.maybe_start_profiler(state.step)
-                metrics = steps.train(state, steps.place(batch),
-                                      base_rng.fold(state.step))
-                metrics["data_wait_ms"] = train_loader.last_wait_ms
-                meters.update(metrics)
-                if on_step is not None:
-                    on_step("train", state.step, metrics)
-                if max_steps is not None and state.step >= max_steps:
-                    break
+            for chunk in train_chunks(train_loader, K, state, max_steps,
+                                      profiler):
+                run_train_chunk(
+                    state, lambda b: steps.train(state, steps.place(b),
+                                                 base_rng.fold(state.step)),
+                    chunk, mesh, meters, on_step, train_loader)
             val_meters = AverageMeters()
             val_rng = base_rng.fold(10 ** 9 + epoch)
             for vi, batch in enumerate(val_loader):
-                metrics = steps.eval(state, steps.place(batch),
-                                     val_rng.fold(vi))
+                metrics = D.all_mean(steps.eval(state, steps.place(batch),
+                                                val_rng.fold(vi)), mesh)
                 val_meters.update(metrics)
                 if on_step is not None:
                     on_step("eval", vi, metrics)
             scalars = {**{k + "_train": v
                           for k, v in meters.averages().items()},
                        **val_meters.averages()}
-            logger.log_scalars(state.step, scalars)
-            print(f"epoch {epoch}: " + " ".join(
-                f"{k}={v:.5f}" for k, v in scalars.items()))
+            if main_rank:
+                logger.log_scalars(state.step, scalars)
+                print(f"epoch {epoch}: " + " ".join(
+                    f"{k}={v:.5f}" for k, v in scalars.items()))
             stopped = max_steps is not None and state.step >= max_steps
             if (epoch % max(1, p.ckpt_per_epochs) == 0
                     or epoch == p.epochs - 1 or stopped):
@@ -273,8 +320,11 @@ def train(cfg: Config, max_steps: Optional[int] = None, sprites=None,
             if (cfg.Env.visual_callback
                     and epoch % max(1, p.log_per_epochs) == 0):
                 try:
-                    visual_callback(cfg, predictor, ae, steps.place(
-                        next(iter(val_loader))), mode, dm.renorm, epoch)
+                    # every rank runs the forward (its collectives); rank 0
+                    # writes the picture
+                    visual_callback(cfg, state.module, ae, steps.place(
+                        next(iter(val_loader))), mode, dm.renorm, epoch,
+                        mesh)
                 except Exception:  # a picture must never end a run
                     print("visual callback failed:")
                     traceback.print_exc(file=sys.stdout)
@@ -282,7 +332,8 @@ def train(cfg: Config, max_steps: Optional[int] = None, sprites=None,
                 break
     finally:
         profiler.stop_profiler()
-        logger.close()
+        if logger is not None:
+            logger.close()
         train_loader.close()
         val_loader.close()
     return state
@@ -290,11 +341,18 @@ def train(cfg: Config, max_steps: Optional[int] = None, sprites=None,
 
 def visual_callback(cfg: Config, predictor: NPPredictor,
                     ae: FrameAutoEncoder, batch, mode: str, renorm,
-                    epoch: int) -> Path:
+                    epoch: int, mesh=None) -> Optional[Path]:
     """GT | prediction GIF of the first clip of ``batch`` (on the device),
     the predictor in eval mode with its latent drawn from ``Rng(epoch)``;
-    → the GIF's path."""
+    → the GIF's path. On a mesh every rank runs the forward on its rows
+    (the first of rank 0's is the global batch's first) and rank 0 writes
+    the GIF; the others return None."""
     p = cfg.Predictor
+    data = D.axis(mesh, D.DATA_AXIS)
+    rng = Rng(epoch)
+    if data is not None:
+        n = batch["clip" if mode == "rand_context" else "past"].shape[0]
+        rng = rng.for_rows(data.rank, data.size, n)
     predictor.eval()
     with torch.no_grad():
         if mode == "rand_context":
@@ -302,14 +360,15 @@ def visual_callback(cfg: Config, predictor: NPPredictor,
                                             batch["clip"].device)
             out = predictor(ae.encode(batch["clip"]), coords, coords,
                             obs_mask=batch["obs_mask"],
-                            tgt_mask=batch["tgt_mask"], rng=Rng(epoch))
+                            tgt_mask=batch["tgt_mask"], rng=rng)
             gt = batch["clip"][0]
         else:
             oc, tc, _, _ = build_coords(cfg, device=batch["past"].device)
-            out = predictor(ae.encode(batch["past"]), oc, tc,
-                            rng=Rng(epoch))
+            out = predictor(ae.encode(batch["past"]), oc, tc, rng=rng)
             gt = torch.cat([batch["past"][0], batch["future"][0]])
         pred = ae.decode(out.pred_features)[0]
+    if not D.is_main_process():
+        return None
     path = Path(p.tensorboard_save_dir) / f"epoch_{epoch}.gif"
     save_clip_gifs(path, {"gt": gt.float().cpu().numpy(),
                           "pred": pred.float().cpu().numpy()}, renorm=renorm)

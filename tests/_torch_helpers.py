@@ -64,6 +64,20 @@ def tiny_config(stochastic: bool = False):
     return cfg.validate()
 
 
+def parallel_config(dropout=0.0, stochastic=True, layers=2):
+    """tiny_config for training at a global batch of 4, fp32, the eval step
+    through the attention op (its CPU twin); ``layers`` EVT-Former and
+    decoder layers."""
+    cfg = tiny_config(stochastic)
+    d, p = cfg.Dataset, cfg.Predictor
+    p.transformer_layers = p.evt_former_num_layers = layers
+    d.batch_size, cfg.Env.compute_dtype = 4, "float32"
+    p.dropout = p.drop_path = dropout
+    p.rand_context, p.min_lo, p.max_lo = True, 2, 6
+    p.predictor_lr, p.max_grad_norm, p.scheduler_T0 = 1e-3, 0.05, 1
+    return cfg.validate()
+
+
 def port_config(jax_cfg):
     """The same configuration in the port's own schema."""
     import dataclasses

@@ -352,11 +352,13 @@ def test_det_to_sto_warm_start_from_a_weights_archive(tmp_path):
 
 @pytest.mark.parametrize("trainer", ["stage1", "stage2"])
 def test_unhonoured_env_fields_are_named(tmp_path, capsys, trainer):
-    """Both trainers print one line naming the set ``Env`` fields that only
-    the JAX package reads (``debug_nans``, set too, is honoured and not
-    named); a config that sets none prints no such line."""
+    """Both trainers print one line naming the set ``Env`` field that only
+    the JAX package reads, ``sequence_parallel`` (``debug_nans``, the mesh,
+    FSDP and multi-step dispatch, set too, are honoured and not named); a
+    config that sets none prints no such line."""
     env = dict(fsdp=True, steps_per_dispatch=4, debug_nans=True,
-               mesh_shape=[["data", 2], ["model", 4]])
+               mesh_shape=[["data", 2], ["model", 4]],
+               sequence_parallel=True)
     if trainer == "stage1":
         cfg = _trainer_cfg(tmp_path, **env)
         cfg.AE.epochs = 0
@@ -376,10 +378,10 @@ def test_unhonoured_env_fields_are_named(tmp_path, capsys, trainer):
     lines = [line for line in capsys.readouterr().out.splitlines()
              if "not honoured" in line]
     assert len(lines) == 1
-    for name in ("fsdp=True", "steps_per_dispatch=4", "mesh_shape="):
-        assert name in lines[0]
-    assert "visual_callback" not in lines[0]
-    assert "debug_nans" not in lines[0]
+    assert "sequence_parallel=True" in lines[0]
+    for name in ("fsdp", "steps_per_dispatch", "mesh_shape",
+                 "visual_callback", "debug_nans"):
+        assert name not in lines[0]
     defaults = type(cfg.Env)()
     for k in env:
         setattr(cfg.Env, k, getattr(defaults, k))
