@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--phases 1,2]
 
 Builds the temporal-attention kernel from ``npvp_tpu_torch/kernels/csrc``
-with nvcc, then runs eleven phases (all of them by default; ``--phases``
+with nvcc, then runs twelve phases (all of them by default; ``--phases``
 picks some, for a short check), each printing its own lines:
 
 1. environment: the card's name and power limit, torch, CUDA, nvcc, the
@@ -106,6 +106,25 @@ picks some, for a short check), each printing its own lines:
    stage-2 steps at data 2 against the one-process run at batch 16
    (phase 6's bound); over NCCL with FSDP where the host has two cards,
    else one line says it was not run.
+12. sequence and pipeline parallelism, the dry run and the adversarial
+   steps (``core.sequence_parallel``, ``core.pipeline``,
+   ``tools.dryrun_multichip``, ``make_gan_steps``): (a) the fused kernel
+   at the shapes sequence parallelism gives it at model 2 (whole sites, 4
+   heads, wo's columns, no bias) against its twin, ms a launch; then on
+   two ranks sharing the card over gloo: the flagship served through
+   ``VideoPredictor.shard`` at model 2 under ``sequence_parallel(mesh)``
+   against one device (max|d| < 0.1, 32 launches a forward per rank, ms
+   a forward); (b) 4 steps of SMMNIST Unified NPVP-S at model 2 with
+   sequence parallelism (2 without, for the peak) against one process at
+   batch 8 (phase 6's bound), peak GiB a rank, the eval step's 40
+   launches, and the SP spans and collectives of one profiled step; (c)
+   GPipe of the flagship's 8 decoder blocks at 2 stages × 4 microbatches
+   against the sequential stack on the same microbatches (bf16 2e-2, 48
+   launches a rank); (d)
+   ``dryrun_multichip(4)`` (4 ranks on the card over gloo: its three OK
+   lines); (e) 5 adversarial steps of SMMNIST Unified NPVP-S at full
+   width (finite losses, ms a step, peak), its eval step's 40 launches
+   against the plain path.
 
 The phases run in a child process; this one exits with its code once every
 process the run started has ended (see ``supervise``). Any failure exits
@@ -2274,10 +2293,11 @@ COLLECTIVE_WORDS = ("gloo", "nccl", "all_reduce", "allreduce", "all_gather",
                     "allgather", "reduce_scatter", "broadcast", "memcpy")
 
 
-def _collectives(torch, fn):
+def _collectives(torch, fn, words=COLLECTIVE_WORDS):
     """Wall ms of one call of ``fn`` under torch.profiler and the host and
     device ms of its collective events (and of the copies gloo makes
-    between the card and the host), by name."""
+    between the card and the host), by name: the events whose name holds
+    one of ``words``."""
     from torch.profiler import ProfilerActivity, profile as prof
 
     torch.cuda.synchronize()
@@ -2288,7 +2308,7 @@ def _collectives(torch, fn):
         wall = (time.perf_counter() - t0) * 1e3
     found = {}
     for ev in pr.key_averages():
-        if not any(w in ev.key.lower() for w in COLLECTIVE_WORDS):
+        if not any(w in ev.key.lower() for w in words):
             continue
         dev = (getattr(ev, "device_time_total", None)
                or getattr(ev, "cuda_time_total", 0.0) or 0.0)
@@ -2393,12 +2413,427 @@ def phase_parallel(torch, ta):
     return out
 
 
+# -- phase 12: sequence and pipeline parallelism, the dry run, GAN ----------
+
+# the fused kernel as sequence parallelism calls it at model 2 (phase 11's
+# sites: whole, H gathered), 4 local heads of 64, wo's local columns, no
+# bias (added after the reduce-scatter)
+SP_WORDS = COLLECTIVE_WORDS + ("sequence_parallel",)
+
+
+def _sp_kernel(torch, ta):
+    """(a) the fused kernel at the shapes sequence parallelism gives it at
+    model 2 against its twin (phase 2's bf16 bound), ms a launch beside the
+    full launch."""
+    dtype, tol, out = torch.bfloat16, 2e-2, {}
+    for name, B, Tq, Tk, mask in TP_SITES:
+        x = make_inputs(torch, B, Tq, Tk, mask, dtype, True, seed=B + Tq)
+        cols = slice(HD // 2, HD)  # model rank 1's heads
+        args = (x["q"][..., cols].contiguous(), x["k"][..., cols].contiguous(),
+                x["v"][..., cols].contiguous(), x["bias"])
+        kw = dict(num_heads=NH // 2, wo=x["wo"][:, cols].contiguous(),
+                  bo=None)
+        got = ta.temporal_attention(*args, **kw).float()
+        want = ta.temporal_attention_plain(*args, **kw).float()
+        err = (got - want).abs()
+        check(bool((err <= tol + tol * want.abs()).all()),
+              f"SP {name}: kernel vs twin max|d|={err.max().item():.3e}")
+        saved = dict(ta.LAUNCHES)
+        ms = time_call(torch, lambda: ta.temporal_attention(*args, **kw))
+        plain_ms = time_call(torch, lambda: ta.temporal_attention_plain(
+            *args, **kw))
+        full = dict(num_heads=NH, wo=x["wo"], bo=x["bo"])
+        full_ms = time_call(torch, lambda: ta.temporal_attention(
+            x["q"], x["k"], x["v"], x["bias"], **full))
+        ta.LAUNCHES.update(saved)
+        out[name] = dict(max_abs=err.max().item(), ms=ms, plain_ms=plain_ms,
+                         full_ms=full_ms)
+        print(f"(a) kernel at the SP shape {name} B={B} T={Tq}x{Tk}, "
+              f"{NH // 2} heads (HD {HD // 2}), no bias: vs twin max|d|="
+              f"{err.max().item():.3e} (tol {tol}+{tol}|x|); {ms:.4f} ms a "
+              f"launch (twin {plain_ms:.4f}, full launch {full_ms:.4f})")
+    return out
+
+
+def _sp_serve(torch, ta, D, rank, dev):
+    """(a) the flagship through ``VideoPredictor.shard`` at model 2 under
+    sequence parallelism against one device's ``freeze_task``."""
+    import numpy as np
+
+    from npvp_tpu_torch.core.config import flagship_config
+    from npvp_tpu_torch.core.sequence_parallel import sequence_parallel
+    from npvp_tpu_torch.models.inference import VideoPredictor
+    from npvp_tpu_torch.models.predictor import build_predictor
+    from npvp_tpu_torch.nn.resnet_ae import build_ae
+
+    cfg = flagship_config()
+    p, d = cfg.Predictor, cfg.Dataset
+    gen = torch.Generator(device=dev).manual_seed(1)
+    frames = torch.rand((64, 10, d.img_size, d.img_size, d.img_channels),
+                        generator=gen, device=dev) * 2 - 1
+    eps = torch.randn((64, p.max_H, p.max_W, p.embed_dim), generator=gen,
+                      device=dev)
+    to, tp = np.arange(10), np.arange(10, 20)
+    one = VideoPredictor.from_random_init(
+        cfg, torch.bfloat16, seed=0, exec_mode="pallas", device=dev)
+    want = one.freeze_task(to, tp)(frames, eps=eps).float()
+    ae = build_ae(cfg, torch.bfloat16)
+    pred = build_predictor(cfg, torch.bfloat16, exec_mode="pallas")
+    ae.load_state_dict(one.ae.state_dict())
+    pred.load_state_dict(one.predictor.state_dict())
+    del one
+    mesh = D.make_mesh(1, 2, device_type="cuda")
+    fn = VideoPredictor(cfg, ae, pred, device=dev).shard(mesh).freeze_task(
+        to, tp)
+    ms = []
+    with sequence_parallel(mesh):
+        fn(frames, eps=eps)  # warm-up
+        for _ in range(1):
+            reset_launches(ta)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = fn(frames, eps=eps).float()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            launches = dict(ta.LAUNCHES)
+    diff = (got - want).abs()
+    out = dict(max_abs=diff.max().item(), mean_abs=diff.mean().item(),
+               launches=launches, ms_per_forward=ms)
+    check(tuple(got.shape) == tuple(want.shape)
+          and bool(torch.isfinite(got).all()), "SP serving: bad output")
+    check(launches == {"oproj": 32, "attn": 0},
+          f"SP serving: rank {rank} launched {launches}, not 32")
+    check(out["max_abs"] < 0.1,
+          f"SP serving: max|d| {out['max_abs']:.3e} to one device")
+    return out
+
+
+def _sp_train(torch, ta, D, rank, dev, tmp):
+    """(b) 4 stage-2 steps of SMMNIST Unified NPVP-S (its YAML as it
+    stands) at model 2 with sequence parallelism (and 2 without, for the
+    peak memory), against one process at the same global batch (rank 0);
+    the eval step's launches; a profiled SP step."""
+    import torch.distributed as dist
+
+    from npvp_tpu_torch.core.config import load_config
+    from npvp_tpu_torch.core.sequence_parallel import sequence_parallel
+    from npvp_tpu_torch.data.loader import DataModule
+    from npvp_tpu_torch.models.predictor import build_predictor
+    from npvp_tpu_torch.nn.layers import Rng
+    from npvp_tpu_torch.train import stage2_predictor as s2
+    from npvp_tpu_torch.train.common import parallelize_state
+
+    cfg = load_config(CONFIGS / "config_SMMNIST_Unified_NPVP-S.yaml", [
+        "Predictor.exec_mode=pallas", "Dataset.dev_set_size=64"])
+    ae_dir = Path(tmp) / f"sp_ae{rank}"
+    ae_dir.mkdir(parents=True, exist_ok=True)
+    cfg.Predictor.resume_AE_ckpt = str(s2.write_random_ae(cfg, ae_dir))
+    dtype = s2.compute_dtype(cfg)
+    ae = s2.load_frozen_ae(cfg, dtype, dev)
+    loader = DataModule(cfg).train_loader("rand_context")
+    batches = [b for _, b in zip(range(4), loader)]
+    loader.close()
+    base = Rng(cfg.Env.rand_seed)
+
+    def run(mesh, sp, n_steps=4):
+        state = s2.init_predictor_state(
+            cfg, build_predictor(cfg, dtype).to(dev), 4)
+        state = parallelize_state(state, mesh, False, s2.fsdp_units)
+        steps = s2.make_steps(cfg, ae, "rand_context", dev, mesh)
+        place = lambda b: steps.place(D.shard_batch(mesh, b))  # noqa
+        torch.cuda.reset_peak_memory_stats(dev)
+        losses, ms = [], []
+        with sequence_parallel(mesh if sp else None):
+            for i, b in enumerate(batches[:n_steps]):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                m = D.all_mean(steps.train(state, place(b), base.fold(i)),
+                               mesh)
+                losses.append({k: float(v) for k, v in m.items()})
+                ms.append((time.perf_counter() - t0) * 1e3)
+            peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+            reset_launches(ta)
+            ev = steps.eval(state, place(batches[0]), base.fold(50))
+            torch.cuda.synchronize()
+            launches = dict(ta.LAUNCHES)
+            out = dict(losses=losses, ms=ms, peak_gib=peak,
+                       eval={k: float(v) for k, v in ev.items()},
+                       eval_launches=launches)
+            if sp:
+                local = place(batches[0])
+                out["profiled_step"] = _collectives(
+                    torch, lambda: steps.train(state, local, base.fold(99)),
+                    SP_WORDS)
+        del state
+        torch.cuda.empty_cache()
+        return out
+
+    want = run(None, False) if rank == 0 else None
+    dist.barrier()
+    mesh = D.make_mesh(1, 2, cfg.Dataset.batch_size, "cuda")
+    tp_only = run(mesh, False, n_steps=2)  # its peak, for comparison
+    got = run(mesh, True)
+    check(got["eval_launches"] == {"oproj": 40, "attn": 0},
+          f"SP eval step: rank {rank} launched {got['eval_launches']}")
+    if rank != 0:
+        return None
+    for tag, r in (("model 2", tp_only), ("model 2 + SP", got)):
+        gap, ok = _largest_gap(r["losses"], want["losses"][:len(
+            r["losses"])])
+        r["largest_gap"] = gap
+        check(ok, f"{tag}: losses depart from one process by {gap:.3e}")
+    return dict(one_process=want, model2=tp_only, model2_sp=got)
+
+
+def _gpipe(torch, ta, rank, dev):
+    """(c) the flagship's 8 decoder blocks (eval mode, the fused kernel)
+    at 2 stages × 4 microbatches of 16 rows against the sequential stack
+    on one rank, run on the same microbatches (cuBLAS picks its
+    algorithms by shape, so the stack on the batch of 64 rounds bf16
+    otherwise: that gap is printed too)."""
+    import torch.distributed as dist
+    from torch.func import functional_call
+
+    from npvp_tpu_torch.core.config import flagship_config
+    from npvp_tpu_torch.core.pipeline import (make_pipeline_mesh,
+                                              pipeline_apply,
+                                              stack_layer_params)
+    from npvp_tpu_torch.models.predictor import build_predictor
+    from npvp_tpu_torch.tools.weights import random_init
+
+    cfg = flagship_config()
+    p = cfg.Predictor
+    pred = random_init(build_predictor(cfg, torch.bfloat16, "pallas"), 3)
+    blocks = [getattr(pred.decoder, f"layer_{i}").to(dev).eval()
+              for i in range(p.transformer_layers)]
+    gen = torch.Generator(device=dev).manual_seed(5)
+    rand = lambda *s: torch.randn(s, generator=gen, device=dev)  # noqa
+    N, T, H, W, C = 64, 10, p.max_H, p.max_W, p.embed_dim
+    tgt0, memory, query = (rand(N, T, H, W, C), rand(N, T, H, W, C),
+                           rand(N, 1, H, W, C))
+    mem_pos = (rand(T * H * W, C), rand(T * H * W, C))
+    tgt_pos = (rand(T * H * W, C), rand(T * H * W, C))
+    out = {}
+    if rank == 0:
+        with torch.no_grad():
+            def sequential(rows=slice(None)):
+                h = tgt0[rows]
+                for b in blocks:
+                    h = b(h, query[rows], memory[rows], mem_pos, tgt_pos)
+                return h
+            want64 = sequential().float()
+            want = torch.cat([sequential(slice(i, i + 16)).float()
+                              for i in range(0, N, 16)])
+            out["sequential_ms"] = time_forwards(torch, sequential, 2)
+    dist.barrier()
+
+    def apply_block(params, pack):
+        tgt, q, m = pack
+        return (functional_call(blocks[0], params,
+                                (tgt, q, m, mem_pos, tgt_pos)), q, m)
+
+    mesh = make_pipeline_mesh(2, 1, "cuda")
+    pack = tuple(t.reshape((4, 16) + tuple(t.shape[1:]))
+                 for t in (tgt0, query, memory))
+    stacked = stack_layer_params(blocks)
+    ms = []
+    for _ in range(2):
+        reset_launches(ta)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = pipeline_apply(apply_block, stacked, pack, mesh=mesh)[0]
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        launches = dict(ta.LAUNCHES)
+    # 4 microbatches x 4 blocks a stage x 3 attention calls
+    check(launches == {"oproj": 48, "attn": 0},
+          f"GPipe: rank {rank} launched {launches}, not 48")
+    if rank == 0:
+        got = got.reshape(want.shape).float()
+        err = (got - want).abs()
+        check(bool(torch.isfinite(got).all()) and bool(
+            (err <= 2e-2 + 2e-2 * want.abs()).all()),
+            f"GPipe vs sequential max|d| {err.max().item():.3e}")
+        out.update(max_abs=err.max().item(), mean_abs=err.mean().item(),
+                   max_abs_batch64=(got - want64).abs().max().item(),
+                   mean_abs_batch64=(got - want64).abs().mean().item())
+    out.update(pipeline_ms=ms, launches=launches)
+    return out
+
+
+def _rank12_main(rank, world, tmp):
+    """One of phase 12's two ranks, both on card 0 over gloo."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(HERE))
+    from npvp_tpu_torch.core import distributed as D
+    from npvp_tpu_torch.kernels import temporal_attention as ta
+
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda:0")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    D.maybe_init_distributed("cuda", backend="gloo",
+                             init_method=f"file://{tmp}/pg12", rank=rank,
+                             world_size=world)
+    try:
+        out, t0 = {}, time.perf_counter()
+        for key, part in (
+                ("serving", lambda: _sp_serve(torch, ta, D, rank, dev)),
+                ("training", lambda: _sp_train(torch, ta, D, rank, dev,
+                                               tmp)),
+                ("gpipe", lambda: _gpipe(torch, ta, rank, dev))):
+            out[key] = part()
+            out[f"{key}_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+        if rank == 0:
+            torch.save(out, Path(tmp) / "phase12.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _two_ranks12(torch):
+    import torch.multiprocessing as mp
+
+    tmp = Path(WORK["dir"]) / "phase12"
+    tmp.mkdir(parents=True, exist_ok=True)
+    mp.start_processes(_rank12_main, args=(2, str(tmp)), nprocs=2,
+                       join=True, start_method="spawn")
+    res = torch.load(tmp / "phase12.pt", weights_only=False)
+    s = res["serving"]
+    print(f"(a) gloo, 2 ranks on cuda:0: serving at model 2 with sequence "
+          f"parallelism, batch 64 VFP 10->10: max|d|={s['max_abs']:.3e} "
+          f"mean|d|={s['mean_abs']:.3e} to one device's freeze_task (bound "
+          f"0.1), launches per rank per forward {s['launches']}, ms/forward "
+          f"{[round(x, 2) for x in s['ms_per_forward']]} "
+          f"({res['serving_s']:.1f} s)")
+    t = res["training"]
+    one = t["one_process"]
+    for tag in ("model2", "model2_sp"):
+        r = t[tag]
+        print(f"(b) {tag}: {len(r['losses'])} steps of SMMNIST Unified "
+              f"NPVP-S at batch 8: "
+              f"losses {[round(m['loss'], 6) for m in r['losses']]} vs one "
+              f"process {[round(m['loss'], 6) for m in one['losses']]}, "
+              f"largest gap {r['largest_gap']:.3e} (bound "
+              f"{_loss_bound(one['losses'][0]['loss']):.2e}); ms/step "
+              f"{[round(x, 1) for x in r['ms']]} vs "
+              f"{[round(x, 1) for x in one['ms']]}; peak {r['peak_gib']:.2f}"
+              f" GiB a rank vs {one['peak_gib']:.2f} GiB; eval step "
+              f"launches {r['eval_launches']}")
+    wall, found = t["model2_sp"]["profiled_step"]
+    print(f"(b) one SP train step under torch.profiler: {wall:.1f} ms wall "
+          "on rank 0; spans and collectives: " + "; ".join(
+              f"{k} x{v['count']} host {v['host_ms']:.2f} ms device "
+              f"{v['device_ms']:.2f} ms" for k, v in sorted(found.items())))
+    print(f"    ({res['training_s']:.1f} s)")
+    g = res["gpipe"]
+    print(f"(c) GPipe, 8 flagship decoder blocks at 2 stages x 4 "
+          f"microbatches of 16: max|d|={g['max_abs']:.3e} mean|d|="
+          f"{g['mean_abs']:.3e} to the sequential stack on the same "
+          f"microbatches (bound 2e-2+2e-2|x|), max|d|="
+          f"{g['max_abs_batch64']:.3e} mean|d|={g['mean_abs_batch64']:.3e}"
+          f" to the stack on the batch of 64; "
+          f"{[round(x, 1) for x in g['pipeline_ms']]} ms vs "
+          f"{g['sequential_ms']:.1f} ms sequential on one rank; launches "
+          f"per rank {g['launches']} ({res['gpipe_s']:.1f} s)")
+    return res
+
+
+def _gan_steps(torch, ta):
+    """(e) 5 adversarial steps of SMMNIST Unified NPVP-S at full width
+    (``make_gan_steps``), then its eval step with the kernel against the
+    plain path."""
+    import types
+
+    import numpy as np
+
+    from npvp_tpu_torch.core.config import load_config
+    from npvp_tpu_torch.data.loader import DataModule
+    from npvp_tpu_torch.models.predictor import build_predictor
+    from npvp_tpu_torch.nn.layers import Rng
+    from npvp_tpu_torch.train import stage2_predictor as s2
+
+    tmp = Path(WORK["dir"]) / "gan"
+    tmp.mkdir(parents=True, exist_ok=True)
+    cfg = load_config(CONFIGS / "config_SMMNIST_Unified_NPVP-S.yaml", [
+        "Predictor.exec_mode=pallas", "Predictor.use_gan=true",
+        "Dataset.dev_set_size=64"])
+    cfg.Predictor.resume_AE_ckpt = str(s2.write_random_ae(cfg, tmp))
+    dev, dtype = torch.device("cuda"), s2.compute_dtype(cfg)
+    ae = s2.load_frozen_ae(cfg, dtype, dev)
+    state_g = s2.init_predictor_state(
+        cfg, build_predictor(cfg, dtype).to(dev), 5)
+    train_step, eval_step, place, init_d = s2.make_gan_steps(
+        cfg, ae, "rand_context", dev)
+    state_d = init_d(cfg.Env.rand_seed + 1)
+    loader = DataModule(cfg).train_loader("rand_context")
+    batches = [place(b) for _, b in zip(range(5), loader)]
+    loader.close()
+    base = Rng(cfg.Env.rand_seed)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(ta)
+    record = []
+    for i, b in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = {k: float(v) for k, v in train_step(state_g, state_d, b,
+                                                 base.fold(i)).items()}
+        torch.cuda.synchronize()
+        record.append(dict(m, ms=(time.perf_counter() - t0) * 1e3))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(dict(ta.LAUNCHES) == {"oproj": 0, "attn": 0},
+          f"a GAN train step launched the kernel {dict(ta.LAUNCHES)}")
+    check(all(np.isfinite([v for k, v in m.items()]).all() for m in record),
+          "a GAN loss is not finite")
+    reset_launches(ta)
+    eval_step(state_g, batches[0], Rng(7))
+    torch.cuda.synchronize()
+    launches = dict(ta.LAUNCHES)
+    check(launches == {"oproj": 40, "attn": 0},
+          f"the GAN eval step launched {launches}, not 40")
+    gap = eval_kernel_vs_plain(torch, cfg, state_g,
+                               types.SimpleNamespace(eval=eval_step),
+                               batches[0])
+    keys = ("loss", "loss_G_gan", "loss_D", "loss_D_fake", "loss_D_real")
+    for i, m in enumerate(record):
+        print(f"(e) GAN step {i}: " + ", ".join(
+            f"{k} {m[k]:.5f}" for k in keys) + f", {m['ms']:.1f} ms")
+    ms = statistics.median(m["ms"] for m in record[2:])
+    print(f"(e) discriminator of {state_d.model.n_layers} + 2 convs (ndf "
+          f"{cfg.Predictor.ndf}); {ms:.1f} ms a step (median after 2), "
+          f"peak {peak:.2f} GiB; eval step launches {launches}, kernel vs "
+          f"plain eval losses within {gap:.2e}")
+    return dict(steps=record, ms=ms, peak_gib=peak, eval_launches=launches,
+                eval_gap=gap)
+
+
+def phase_sequence_pipeline(torch, ta):
+    """Phase 12: (a) the kernel at SP shapes, and with (b) and (c) on two
+    ranks sharing the card: SP serving, SP training, GPipe; (d) the dry
+    run on four ranks; (e) the adversarial steps."""
+    from npvp_tpu_torch.tools.dryrun_multichip import dryrun_multichip
+
+    out, t0 = {}, time.perf_counter()
+    for key, part in (
+            ("sp_kernel", lambda: _sp_kernel(torch, ta)),
+            ("two_ranks", lambda: _two_ranks12(torch)),
+            ("dryrun", lambda: dryrun_multichip(4)),
+            ("gan", lambda: _gan_steps(torch, ta))):
+        out[key] = part()
+        print(f"-- phase 12 {key}: {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        t0 = time.perf_counter()
+    return out
+
+
 def main(argv) -> int:
     import argparse
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases", help="comma-separated phase numbers "
-                        "(1-11) for a short check; the default runs all and "
+                        "(1-12) for a short check; the default runs all and "
                         "prints the record")
     args = parser.parse_args(argv)
     picked = (None if args.phases is None
@@ -2439,7 +2874,9 @@ def main(argv) -> int:
               ("chain: stage 2, evaluation, serving", phase_chain),
               ("data layer and new models", phase_data_models),
               ("serving options and tools", phase_serving_tools),
-              ("parallelism", phase_parallel)]
+              ("parallelism", phase_parallel),
+              ("sequence and pipeline parallelism, dry run, GAN",
+               phase_sequence_pipeline)]
     if picked is not None:
         phases = [ph for i, ph in enumerate(phases, 1) if i in picked]
     WORK["dir"] = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -2471,6 +2908,8 @@ def main(argv) -> int:
     new = results["data layer and new models"]
     tools = results["serving options and tools"]
     par = results["parallelism"]
+    sp_pp = results["sequence and pipeline parallelism, dry run, GAN"]
+    two12 = sp_pp["two_ranks"]
     replaces = {"oproj": "npvp_tpu/kernels/temporal_attention.py:136",
                 "attn": "npvp_tpu/kernels/temporal_attention.py:127"}
     run_of = {"oproj": "kernel_oproj", "attn": "kernel_attn"}
@@ -2527,6 +2966,17 @@ def main(argv) -> int:
                                "full_ms": r["full_ms"]}
                            for k, r in par["tp_shards"].items()
                            if k != "launches"} if v == "oproj" else None),
+            "launches_phase12": {
+                "sp_serving_forward_per_rank":
+                    two12["serving"]["launches"][v],
+                "sp_eval_step_per_rank":
+                    two12["training"]["model2_sp"]["eval_launches"][v],
+                "gpipe_call_per_rank": two12["gpipe"]["launches"][v],
+                "gan_eval_step": sp_pp["gan"]["eval_launches"][v]},
+            "sp_shards": ({k: {key: r[key] for key in
+                               ("ms", "plain_ms", "full_ms", "max_abs")}
+                           for k, r in sp_pp["sp_kernel"].items()}
+                          if v == "oproj" else None),
             "times": "per flagship forward: the sum over its 32 calls, bf16",
             "per_call": acc["per_call"]})
     print(json.dumps({"kernels": kernels}))

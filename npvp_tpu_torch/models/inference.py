@@ -23,7 +23,9 @@ group): the predictor's heads and FFN widths split over the mesh's model
 axis, the AE replicated. Every ``predict*`` call then takes the global
 batch on every rank; each data rank runs its rows (``r::data``) with the
 noise the one-process call draws for them, and all of them return the
-global output.
+global output. Calls made inside ``core.sequence_parallel
+.sequence_parallel(mesh)`` (or after ``enable_sequence_parallel(mesh)``)
+also split the VidHRFormer stacks' activations on H over the model axis.
 """
 
 from __future__ import annotations

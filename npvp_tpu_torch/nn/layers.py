@@ -27,6 +27,7 @@ from torch import nn
 
 from npvp_tpu_torch.core.distributed import (all_reduce_sum, copy_to_model,
                                              reduce_from_model)
+from npvp_tpu_torch.core.sequence_parallel import sp_param, span
 from npvp_tpu_torch.nn.quant import int8_contract
 
 
@@ -142,23 +143,33 @@ def scaled_dot_product_attention(q, k, v, mask=None, dropout_rate=0.0,
     return torch.einsum("...hqk,...khd->...qhd", weights, v)
 
 
-def linear(x, layer: nn.Linear, dtype, quant: bool = False):
+def linear(x, layer: nn.Linear, dtype, quant: bool = False, sp=None):
     """``x @ W + b`` in the compute dtype, W and b cast from float32; with
     ``quant`` the product is the dynamic int8 one
     (:func:`~npvp_tpu_torch.nn.quant.int8_contract`) and the bias is added
-    after it, as the JAX package's ``QuantDense`` does."""
-    bias = None if layer.bias is None else layer.bias.to(dtype)
+    after it, as the JAX package's ``QuantDense`` does. ``sp``: ``x`` is a
+    sequence-parallel shard (``core.sequence_parallel.sp_param``)."""
+    weight = sp_param(layer.weight, sp)
+    bias = (None if layer.bias is None
+            else sp_param(layer.bias, sp).to(dtype))
     if quant:
-        y = int8_contract(x, layer.weight.t(), out_dtype=dtype)
+        y = int8_contract(x, weight.t(), out_dtype=dtype)
         return y if bias is None else y + bias
-    return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
+    return F.linear(x.to(dtype), weight.to(dtype), bias)
 
 
-def row_parallel(x, layer: nn.Linear, dtype, quant: bool = False, tp=None):
+def row_parallel(x, layer: nn.Linear, dtype, quant: bool = False, tp=None,
+                 partial: bool = False):
     """:func:`linear` of a layer whose input columns tensor parallelism
     splits (``tp``: the model axis, ``core.distributed.AxisShard``): the
     partial products summed over the model axis, then the bias, added
-    once. :func:`linear` itself without ``tp``."""
+    once. :func:`linear` itself without ``tp``. With ``partial`` the
+    product alone, neither summed nor biased: the caller reduce-scatters
+    it over sequence-parallel shards and adds the bias there."""
+    if partial:
+        if quant:
+            return int8_contract(x, layer.weight.t(), out_dtype=dtype)
+        return F.linear(x.to(dtype), layer.weight.to(dtype))
     if tp is None:
         return linear(x, layer, dtype, quant)
     y = reduce_from_model(F.linear(x.to(dtype), layer.weight.to(dtype)), tp)
@@ -209,7 +220,8 @@ class MultiHeadAttention(nn.Module):
         return self.dropout if self.training else 0.0
 
     def forward(self, q_in, k_in, v_in, mask=None,
-                rng: Optional[Rng] = None):
+                rng: Optional[Rng] = None, partial: bool = False):
+        """``partial``: :func:`row_parallel`'s, for the output projection."""
         H, tp = self.num_heads, self.tp
         heads = lambda t: t.reshape(t.shape[:-1] + (H, -1))  # noqa: E731
         proj = lambda t, layer: linear(t, layer, self.dtype,  # noqa: E731
@@ -224,7 +236,7 @@ class MultiHeadAttention(nn.Module):
         out = scaled_dot_product_attention(q, k, v, mask, self.dropout_rate,
                                            rng, tp_split(tp, -3))
         return row_parallel(out.flatten(-2), self.wo, self.dtype, self.quant,
-                            tp)
+                            tp, partial)
 
 
 def fp32_moments(x, dims, keepdim: bool = True):
@@ -309,17 +321,24 @@ class TokenLayerNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
-    def forward(self, x):
+    def forward(self, x, sp=None):
+        """``sp``: ``x`` is a sequence-parallel shard."""
+        weight, bias = sp_param(self.weight, sp), sp_param(self.bias, sp)
         mean, var = fp32_moments(x, -1)
         inv = torch.rsqrt(var + self.eps)
-        a = (inv * self.weight).to(self.dtype)
-        b = (self.bias - mean * inv * self.weight).to(self.dtype)
+        a = (inv * weight).to(self.dtype)
+        b = (bias - mean * inv * weight).to(self.dtype)
         return x.to(self.dtype) * a + b
 
 
 class LayerNormHWC(nn.Module):
     """LayerNorm over the trailing (H, W, C) axes with an (H, W, C) affine
-    (the reference's ``nn.LayerNorm((C, H, W))`` in channels-last)."""
+    (the reference's ``nn.LayerNorm((C, H, W))`` in channels-last).
+
+    On a sequence-parallel shard (``sp``: ``x`` holds rows ``rank·h`` …
+    of H) the statistics are the whole sample's: (Σx, Σx², count) summed
+    over the model axis in float32, with the sum's gradient; the affine
+    is used at this shard's rows."""
 
     def __init__(self, shape, eps: float = 1e-5):
         super().__init__()
@@ -327,11 +346,25 @@ class LayerNormHWC(nn.Module):
         self.weight = nn.Parameter(torch.ones(tuple(shape)))
         self.bias = nn.Parameter(torch.zeros(tuple(shape)))
 
-    def forward(self, x):
-        mean, var = fp32_moments(x, (-3, -2, -1))
+    def forward(self, x, sp=None):
+        weight, bias = self.weight, self.bias
+        if sp is None:
+            mean, var = fp32_moments(x, (-3, -2, -1))
+        else:
+            xf, dims = x.float(), (-3, -2, -1)
+            count = x.shape[-3] * x.shape[-2] * x.shape[-1] * sp.size
+            with span("norm_stats"):
+                sums = all_reduce_sum(torch.stack(
+                    [xf.sum(dims), (xf * xf).sum(dims)], -1), sp) / count
+            mean = sums[..., 0, None, None, None]
+            var = torch.clamp(sums[..., 1, None, None, None] - mean * mean,
+                              min=0.0)
+            h = x.shape[-3]
+            weight = sp_param(weight, sp).narrow(0, sp.rank * h, h)
+            bias = sp_param(bias, sp).narrow(0, sp.rank * h, h)
         inv = torch.rsqrt(var + self.eps)
-        a = (inv * self.weight).to(x.dtype)
-        b = (self.bias - mean * inv * self.weight).to(x.dtype)
+        a = (inv * weight).to(x.dtype)
+        b = (bias - mean * inv * weight).to(x.dtype)
         return x * a + b
 
 

@@ -23,6 +23,12 @@ every projection and feed-forward product of the input runs as a dynamic
 int8 product (``npvp_tpu_torch.nn.quant``), the attention itself in the
 compute dtype; the positional terms stay in the compute dtype, as in the
 JAX package.
+
+Under sequence parallelism (``core.sequence_parallel``) each stack splits
+its activations on H over the model axis at entry and gathers its output
+back; the blocks run on the H shards, each attention sublayer and the
+linear FFN gather H at their input, and their outputs, partial sums over
+the model ranks' heads, are reduce-scattered back to the shards.
 """
 
 from __future__ import annotations
@@ -36,6 +42,11 @@ from torch.utils.checkpoint import checkpoint
 
 from npvp_tpu_torch.kernels import temporal_attention as ta_kernel
 from npvp_tpu_torch.core.distributed import copy_to_model, reduce_from_model
+from npvp_tpu_torch.core.sequence_parallel import (gather_h, h_split,
+                                                   halo_rows,
+                                                   reduce_scatter_h,
+                                                   split_h, sp_axis,
+                                                   sp_param)
 from npvp_tpu_torch.nn.layers import (DropPath, LayerNormHWC,
                                       MultiHeadAttention, Rng,
                                       TokenLayerNorm, dropout, fold,
@@ -100,14 +111,16 @@ def _mm(x, w, dtype, quant: bool = False):
 
 
 def _attend(qf, kf, vf, mha: MultiHeadAttention, exec_mode: str, dtype,
-            allow=None, rng: Optional[Rng] = None):
+            allow=None, rng: Optional[Rng] = None, partial: bool = False):
     """Per-site attention plus output projection of (..., Tq, HD) q and
     (..., Tk, HD) k/v whose leading axes are sites; ``allow`` is a boolean
     (Tq, Tk) mask. Returns (..., Tq, C). The kernel serves ``exec_mode ==
     "pallas"`` in eval mode only; training takes the plain attention, with
     its weight dropout. Under tensor parallelism q/k/v hold ``mha``'s local
     heads and the output is summed over the model axis: the fused kernel
-    projects with wo's local columns, and model rank 0 alone adds bo."""
+    projects with wo's local columns, and model rank 0 alone adds bo. With
+    ``partial`` the local heads' projection is returned unsummed and
+    without bo (``nn.layers.row_parallel``)."""
     lead, Tq, HD = qf.shape[:-2], qf.shape[-2], qf.shape[-1]
     Tk = kf.shape[-2]
     nh, tp = mha.num_heads, mha.tp
@@ -116,18 +129,22 @@ def _attend(qf, kf, vf, mha: MultiHeadAttention, exec_mode: str, dtype,
         q, k, v = (qf.reshape(-1, Tq, HD), kf.reshape(-1, Tk, HD),
                    vf.reshape(-1, Tk, HD))
         if ta_kernel.FUSE_OPROJ:
+            own_bo = not partial and (tp is None or tp.rank == 0)
             out = ta_kernel.temporal_attention(
                 q, k, v, bias, num_heads=nh, wo=mha.wo.weight,
-                bo=mha.wo.bias if tp is None or tp.rank == 0 else None)
-            return reduce_from_model(out, tp).reshape(lead + (Tq, -1))
+                bo=mha.wo.bias if own_bo else None)
+            if not partial:
+                out = reduce_from_model(out, tp)
+            return out.reshape(lead + (Tq, -1))
         out = ta_kernel.temporal_attention(q, k, v, bias, num_heads=nh)
         return row_parallel(out.reshape(lead + (Tq, HD)), mha.wo, dtype,
-                            tp=tp)
+                            tp=tp, partial=partial)
     heads = lambda t: t.reshape(t.shape[:-1] + (nh, -1))  # noqa: E731
     out = scaled_dot_product_attention(heads(qf), heads(kf), heads(vf),
                                        allow, mha.dropout_rate, rng,
                                        tp_split(tp, -3))
-    return row_parallel(out.flatten(-2), mha.wo, dtype, mha.quant, tp)
+    return row_parallel(out.flatten(-2), mha.wo, dtype, mha.quant, tp,
+                        partial)
 
 
 class SpatialWindowAttention(nn.Module):
@@ -145,13 +162,13 @@ class SpatialWindowAttention(nn.Module):
                                        quant=exec_mode == "int8")
 
     def forward(self, x, value, pos_beta=None, evt=None,
-                rng: Optional[Rng] = None):
+                rng: Optional[Rng] = None, partial: bool = False):
         N, T, H, W, C = x.shape
         ws, dt, q8 = self.window_size, self.dtype, self.attn.quant
         if pos_beta is None:
             xw = window_partition(x.reshape(N * T, H, W, C), ws)
             vw = window_partition(value.reshape(N * T, H, W, C), ws)
-            out = self.attn(xw, xw, vw, rng=rng)
+            out = self.attn(xw, xw, vw, rng=rng, partial=partial)
             return window_reverse(out, ws, N * T, H, W).reshape(N, T, H, W, C)
 
         # affine path: x is the raw normalised input (== value); windows are
@@ -189,7 +206,8 @@ class SpatialWindowAttention(nn.Module):
         qf = a4 * pq + (b4 * ones_q + pos_q).to(dt)
         kf = a4 * pk + (b4 * ones_k + pos_k).to(dt)
         vf = pv + bv.to(dt)
-        out = _attend(qf, kf, vf, self.attn, self.exec_mode, dt, rng=rng)
+        out = _attend(qf, kf, vf, self.attn, self.exec_mode, dt, rng=rng,
+                      partial=partial)
         out = window_reverse(out.reshape(N * T * nW, ws * ws, C), ws, N * T,
                              H, W)
         return out.reshape(N, T, H, W, C)
@@ -206,7 +224,9 @@ class MlpDWBN(nn.Module):
     per-sample (H, W, C) LayerNorm after each stage, dropout after the last
     two. The 1×1 convs are ``nn.Linear`` over the channel axis, dynamic
     int8 products with ``quant``; the depthwise conv stays in the compute
-    dtype."""
+    dtype. On a sequence-parallel H shard (``sp``) the depthwise conv reads
+    a one-row halo of each neighbour and the LayerNorms take the whole
+    sample's statistics."""
 
     def __init__(self, in_features: int, hidden_features: int,
                  out_features: int, spatial: Tuple[int, int],
@@ -223,19 +243,23 @@ class MlpDWBN(nn.Module):
         self.fc2 = nn.Linear(hidden_features, out_features)
         self.norm3 = LayerNormHWC((H, W, out_features))
 
-    def forward(self, x, rng: Optional[Rng] = None):
+    def forward(self, x, rng: Optional[Rng] = None, sp=None):
         N, T, H, W, C = x.shape
         act, dt = _gelu_for(self.dtype), self.dtype
         drop = lambda y, tag: dropout(y, self.dropout,  # noqa: E731
-                                      self.training, fold(rng, tag))
+                                      self.training, fold(rng, tag),
+                                      h_split(sp, 1))
         y = x.reshape(N * T, H, W, C)
-        y = act(self.norm1(linear(y, self.fc1, dt, self.quant)))
-        dw = self.dw3x3
-        y = F.conv2d(y.permute(0, 3, 1, 2), dw.weight.to(dt),
-                     dw.bias.to(dt), 1, 1, 1, dw.groups).permute(0, 2, 3, 1)
-        y = drop(act(self.norm2(y)), "drop2")
-        y = drop(act(self.norm3(linear(y, self.fc2, dt, self.quant))),
-                 "drop3")
+        y = act(self.norm1(linear(y, self.fc1, dt, self.quant, sp), sp))
+        dw, pad = self.dw3x3, (1, 1)
+        if sp is not None:  # H's padding: the neighbours' rows
+            y, pad = halo_rows(y, sp), (0, 1)
+        y = F.conv2d(y.permute(0, 3, 1, 2), sp_param(dw.weight, sp).to(dt),
+                     sp_param(dw.bias, sp).to(dt), 1, pad, 1,
+                     dw.groups).permute(0, 2, 3, 1)
+        y = drop(act(self.norm2(y, sp)), "drop2")
+        y = drop(act(self.norm3(linear(y, self.fc2, dt, self.quant, sp),
+                                sp)), "drop3")
         return y.reshape(N, T, H, W, -1)
 
 
@@ -273,13 +297,13 @@ class TemporalAttention(nn.Module):
 
     def forward(self, q_in, k_in, v_in, allow=None, pos_beta_q=None,
                 pos_beta_kv=None, evt_q=None, cross_pkv=None,
-                rng: Optional[Rng] = None):
+                rng: Optional[Rng] = None, partial: bool = False):
         to_bt = lambda t: t.permute(0, 2, 3, 1, 4)  # noqa: E731
         dt, q8 = self.dtype, self.attn.quant
         if pos_beta_q is None:
             mask = None if allow is None else allow[None, None, None, None]
             out = self.attn(to_bt(q_in), to_bt(k_in), to_bt(v_in), mask=mask,
-                            rng=rng)
+                            rng=rng, partial=partial)
             return out.permute(0, 3, 1, 2, 4)
 
         w3, (wq_f, wk_f), (ones_q, ones_k), (bq, bk, bv) = _qkv_weights(
@@ -325,7 +349,8 @@ class TemporalAttention(nn.Module):
                   + (to_bt(bk_s) * ones_k
                      + posmm(pos_beta_kv, wk_f, bk, To)).to(dt))
             vf = Pv + bv.to(dt)
-        out = _attend(qf, kf, vf, self.attn, self.exec_mode, dt, allow, rng)
+        out = _attend(qf, kf, vf, self.attn, self.exec_mode, dt, allow, rng,
+                      partial)
         return out.permute(0, 3, 1, 2, 4)
 
 
@@ -334,7 +359,10 @@ class VidHRFormerBlockEnc(nn.Module):
     FFN, pre-LN, with DropPath on the first two branches and dropout on the
     others. Eval mode takes the affine-fused path where it applies. Under
     tensor parallelism (``tp``) the linear FFN holds a slice of the hidden
-    width: linear1's rows, linear2's columns."""
+    width: linear1's rows, linear2's columns. Under sequence parallelism
+    (``sp``, given by the stack) ``x`` is an H shard: each sublayer gathers
+    its normalised input (:meth:`_enter`) and hands back its rows of the
+    output (:meth:`_leave`)."""
 
     n_norms = 4
 
@@ -374,57 +402,87 @@ class VidHRFormerBlockEnc(nn.Module):
     def _drop(self, x, rng, tag, split=None):
         return dropout(x, self.dropout, self.training, fold(rng, tag), split)
 
-    def _linear_ffn(self, x, rng):
+    def _enter(self, norm, x, sp):
+        """``norm(x)``, whole: the input of an attention sublayer or the
+        linear FFN."""
+        return gather_h(norm(x, sp), sp)
+
+    def _leave(self, y, layer: nn.Linear, tp, sp):
+        """A sublayer's output at this shard's rows: under sequence
+        parallelism ``y`` is its unbiased product (``partial``), summed
+        over the model ranks when ``tp`` split it, and ``layer``'s bias is
+        added here."""
+        if sp is None:
+            return y
+        y = split_h(y, sp) if tp is None else reduce_scatter_h(y, sp)
+        return y + sp_param(layer.bias, sp).to(y.dtype)
+
+    def _attn_out(self, y, mha: MultiHeadAttention, sp):
+        return self._leave(y, mha.wo, mha.tp, sp)
+
+    def _linear_ffn(self, x, rng, sp=None):
         tp = self.tp
         y = _gelu_for(self.dtype)(linear(copy_to_model(x, tp), self.linear1,
                                          self.dtype, self.quant))
         y = self._drop(y, rng, "drop_ffn1", tp_split(tp, -1))
-        y = row_parallel(y, self.linear2, self.dtype, self.quant, tp)
-        return self._drop(y, rng, "drop_ffn2")
+        y = row_parallel(y, self.linear2, self.dtype, self.quant, tp,
+                         sp is not None)
+        return self._drop(self._leave(y, self.linear2, tp, sp), rng,
+                          "drop_ffn2", h_split(sp))
 
     def forward(self, x, pos_beta, pos_gamma, temporal_allow=None,
-                rng: Optional[Rng] = None):
-        x1 = self.norm1(x)
+                rng: Optional[Rng] = None, sp=None):
+        part = sp is not None
+        x1 = self._enter(self.norm1, x, sp)
         if self.fused:
-            attn = self.slmhsa(x1, x1, pos_beta=pos_beta)
+            attn = self.slmhsa(x1, x1, pos_beta=pos_beta, partial=part)
         else:
             attn = self.slmhsa(pos_feat_fuse(x1, pos_beta, pos_gamma,
                                              self.norm_type), x1,
-                               rng=fold(rng, "slmhsa"))
+                               rng=fold(rng, "slmhsa"), partial=part)
+        attn = self._attn_out(attn, self.slmhsa.attn, sp)
         x = x + self.drop_path(attn, fold(rng, "drop_path1"))
-        x = x + self.drop_path(self.spatial_ffn(self.norm2(x),
-                                                fold(rng, "spatial_ffn")),
+        x = x + self.drop_path(self.spatial_ffn(self.norm2(x, sp),
+                                                fold(rng, "spatial_ffn"),
+                                                sp),
                                fold(rng, "drop_path2"))
-        x1 = self.norm3(x)
+        x1 = self._enter(self.norm3, x, sp)
         if temporal_allow is None:
             temporal_allow = encoder_temporal_allow(x.shape[1],
                                                     device=x.device)
         if self.fused:
             tattn = self.temporal_mhsa(x1, x1, x1, temporal_allow,
-                                       pos_beta_q=pos_beta)
+                                       pos_beta_q=pos_beta, partial=part)
         else:
             temp = pos_feat_fuse(x1, pos_beta, pos_gamma, self.norm_type)
             tattn = self.temporal_mhsa(temp, temp, x1, temporal_allow,
-                                       rng=fold(rng, "temporal_mhsa"))
-        x = x + self._drop(tattn, rng, "drop_temporal")
-        return x + self._linear_ffn(self.norm4(x), rng)
+                                       rng=fold(rng, "temporal_mhsa"),
+                                       partial=part)
+        tattn = self._attn_out(tattn, self.temporal_mhsa.attn, sp)
+        x = x + self._drop(tattn, rng, "drop_temporal", h_split(sp))
+        return x + self._linear_ffn(self._enter(self.norm4, x, sp), rng, sp)
 
 
-def _run_blocks(stack, blocks, x, args, rng):
+def _run_blocks(stack, blocks, x, args, rng, per_block=None):
     """Thread ``x`` through ``blocks``, each called as ``block(x, *args,
-    rng=...)`` with its own stream; with ``stack.remat`` in training under
-    grad, each block's activations are recomputed in the backward pass. The
-    masks come from the block's stream, so the recomputation draws the same
-    ones."""
+    rng=..., sp=..., **per_block[i])`` with its own stream; with
+    ``stack.remat`` in training under grad, each block's activations are
+    recomputed in the backward pass. The masks come from the block's
+    stream, so the recomputation draws the same ones. Under sequence
+    parallelism (:func:`~npvp_tpu_torch.core.sequence_parallel.sp_axis`)
+    the blocks run on this rank's rows of H and the whole output is
+    gathered at the end."""
     remat = stack.remat and stack.training and torch.is_grad_enabled()
+    sp = sp_axis(x)
+    x = split_h(x, sp)
     for i, block in enumerate(blocks):
-        block_rng = fold(rng, f"layer_{i}")
+        kw = dict(rng=fold(rng, f"layer_{i}"), sp=sp,
+                  **(per_block[i] if per_block else {}))
         if remat:
-            x = checkpoint(block, x, *args, rng=block_rng,
-                           use_reentrant=False)
+            x = checkpoint(block, x, *args, use_reentrant=False, **kw)
         else:
-            x = block(x, *args, rng=block_rng)
-    return x
+            x = block(x, *args, **kw)
+    return gather_h(x, sp)
 
 
 class VidHRFormerEncoder(nn.Module):
@@ -450,7 +508,9 @@ class VidHRFormerBlockDecNAR(VidHRFormerBlockEnc):
     """NAR decoder block: window self-attention (+ event query) → conv FFN →
     temporal self-attention → linear FFN → encoder-decoder cross-attention
     → conv FFN. Holds the encoder block's modules plus ``norm5``,
-    ``norm6``, ``enc_dec_attn`` and ``spatial_ffn1``."""
+    ``norm6``, ``enc_dec_attn`` and ``spatial_ffn1``. Under sequence
+    parallelism ``tgt`` is an H shard; the event query and the memory
+    stay whole."""
 
     n_norms = 6
 
@@ -471,48 +531,55 @@ class VidHRFormerBlockDecNAR(VidHRFormerBlockEnc):
 
     def forward(self, tgt, query_evt, memory, mem_pos, tgt_pos,
                 self_allow=None, cross_allow=None, cross_pkv=None,
-                rng: Optional[Rng] = None):
+                rng: Optional[Rng] = None, sp=None):
         mem_beta, mem_gamma = mem_pos
         tgt_beta, tgt_gamma = tgt_pos
+        part = sp is not None
         fuse = lambda t, b, g: pos_feat_fuse(t, b, g,  # noqa: E731
                                              self.norm_type)
         dp = lambda y, tag: self.drop_path(y, fold(rng, tag))  # noqa: E731
-        tgt2 = self.norm1(tgt)
+        tgt2 = self._enter(self.norm1, tgt, sp)
         if self.fused:
-            attn = self.slmhsa(tgt2, tgt2, pos_beta=tgt_beta, evt=query_evt)
+            attn = self.slmhsa(tgt2, tgt2, pos_beta=tgt_beta, evt=query_evt,
+                               partial=part)
         else:
             attn = self.slmhsa(fuse(tgt2 + query_evt, tgt_beta, tgt_gamma),
-                               tgt2, rng=fold(rng, "slmhsa"))
-        tgt2 = tgt + dp(attn, "drop_path1")
-        tgt2 = tgt2 + dp(self.spatial_ffn(self.norm2(tgt2),
-                                          fold(rng, "spatial_ffn")),
+                               tgt2, rng=fold(rng, "slmhsa"), partial=part)
+        tgt2 = tgt + dp(self._attn_out(attn, self.slmhsa.attn, sp),
+                        "drop_path1")
+        tgt2 = tgt2 + dp(self.spatial_ffn(self.norm2(tgt2, sp),
+                                          fold(rng, "spatial_ffn"), sp),
                          "drop_path2")
 
-        t_in = self.norm3(tgt2)
+        t_in = self._enter(self.norm3, tgt2, sp)
         if self.fused:
             tattn = self.temporal_mhsa(t_in, t_in, t_in, self_allow,
-                                       pos_beta_q=tgt_beta)
+                                       pos_beta_q=tgt_beta, partial=part)
         else:
             temp = fuse(t_in, tgt_beta, tgt_gamma)
             tattn = self.temporal_mhsa(temp, temp, t_in, self_allow,
-                                       rng=fold(rng, "temporal_mhsa"))
-        tgt2 = tgt2 + self._drop(tattn, rng, "drop_temporal")
-        tgt2 = tgt2 + self._linear_ffn(self.norm4(tgt2), rng)
+                                       rng=fold(rng, "temporal_mhsa"),
+                                       partial=part)
+        tattn = self._attn_out(tattn, self.temporal_mhsa.attn, sp)
+        tgt2 = tgt2 + self._drop(tattn, rng, "drop_temporal", h_split(sp))
+        tgt2 = tgt2 + self._linear_ffn(self._enter(self.norm4, tgt2, sp),
+                                       rng, sp)
 
-        q_in = self.norm5(tgt2)
+        q_in = self._enter(self.norm5, tgt2, sp)
         if self.fused:
             cattn = self.enc_dec_attn(q_in, memory, memory, cross_allow,
                                       pos_beta_q=tgt_beta,
                                       pos_beta_kv=mem_beta, evt_q=query_evt,
-                                      cross_pkv=cross_pkv)
+                                      cross_pkv=cross_pkv, partial=part)
         else:
             cattn = self.enc_dec_attn(
                 fuse(q_in + query_evt, tgt_beta, tgt_gamma),
                 fuse(memory, mem_beta, mem_gamma), memory, cross_allow,
-                rng=fold(rng, "enc_dec_attn"))
+                rng=fold(rng, "enc_dec_attn"), partial=part)
+        cattn = self._attn_out(cattn, self.enc_dec_attn.attn, sp)
         tgt2 = tgt2 + dp(cattn, "drop_path3")
-        return tgt2 + dp(self.spatial_ffn1(self.norm6(tgt2),
-                                           fold(rng, "spatial_ffn1")),
+        return tgt2 + dp(self.spatial_ffn1(self.norm6(tgt2, sp),
+                                           fold(rng, "spatial_ffn1"), sp),
                          "drop_path4")
 
 
@@ -522,7 +589,9 @@ class VidHRFormerDecoderNAR(nn.Module):
     the k/v projections of all layers' cross-attentions, which read the
     same memory, run as one (C → L·2·HD) matmul; in int8 too, where it is
     the same function (per-row and per-column scales), though the JAX
-    package projects each layer's memory there."""
+    package projects each layer's memory there. Under sequence parallelism
+    the memory stays whole: every layer's cross-attention reads all of
+    it."""
 
     def __init__(self, num_layers: int, embed_dim: int, num_heads: int,
                  remat: bool = False, **block_kw):
@@ -552,8 +621,7 @@ class VidHRFormerDecoderNAR(nn.Module):
             pieces.append(torch.cat([wk_f, w3[:, 2 * HD:]], -1))
         P = _mm(memory.permute(0, 2, 3, 1, 4), torch.cat(pieces, -1),
                 self.dtype, self.quant)
-        for l, block in enumerate(blocks):
-            pkv = (P[..., l * 2 * HD:l * 2 * HD + HD],
-                   P[..., l * 2 * HD + HD:(l + 1) * 2 * HD])
-            tgt = block(tgt, *args, cross_pkv=pkv)
-        return tgt
+        pkvs = [{"cross_pkv": (P[..., l * 2 * HD:l * 2 * HD + HD],
+                               P[..., l * 2 * HD + HD:(l + 1) * 2 * HD])}
+                for l in range(len(blocks))]
+        return _run_blocks(self, blocks, tgt, args, rng, pkvs)

@@ -12,12 +12,17 @@ process's device is ``cuda:LOCAL_RANK``.
         --config_path <yaml> --override "Env.mesh_shape=[[data,2],[model,2]]" \
         Env.fsdp=true
 
+``Env.sequence_parallel`` splits the VidHRFormer stacks' activations on H
+over the mesh's model axis (``core.sequence_parallel``):
+
+    torchrun --nproc_per_node=4 -m npvp_tpu_torch.train.stage2_predictor \
+        --config_path <yaml> --override "Env.mesh_shape=[[data,2],[model,2]]" \
+        Env.sequence_parallel=true
+
 ``Env.profile_dir`` traces train steps 10-14 with ``torch.profiler``
 (:class:`StepProfiler`); ``Env.debug_nans`` turns on autograd's anomaly
 detection and makes every train step check its losses
-(:func:`check_finite`). The trainers name, once at start, the JAX-only
-``Env`` field that a config sets and the port does not honour
-(``sequence_parallel``).
+(:func:`check_finite`).
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from npvp_tpu_torch.core import distributed as D
 from npvp_tpu_torch.core.checkpoint import CheckpointManager
 from npvp_tpu_torch.core.config import Config, load_config
 from npvp_tpu_torch.core.device import resolve_device
+from npvp_tpu_torch.core.sequence_parallel import enable_sequence_parallel
 from npvp_tpu_torch.core.tensor_parallel import shard_tensor_parallel
 from npvp_tpu_torch.core.train_state import TrainState
 from npvp_tpu_torch.nn.layers import sync_batchnorm
@@ -72,27 +78,19 @@ def config_device(cfg: Config) -> torch.device:
     return resolve_device({"gpu": "cuda"}.get(platform, platform))
 
 
-def unhonoured_env_fields(cfg: Config) -> list:
-    """``Env`` fields set away from their defaults that only the JAX
-    package reads."""
-    return ["sequence_parallel"] if cfg.Env.sequence_parallel else []
-
-
 def setup(cfg: Config):
     """Seed numpy and torch from ``Env.rand_seed``, set autograd's anomaly
-    detection to ``Env.debug_nans``, name the set ``Env`` fields the port
-    ignores, join the process group when there is one, and return
-    (device, mesh): the device of ``Env.platform`` (``cuda:LOCAL_RANK`` on
-    a group) and the (data, model) ``DeviceMesh`` of ``Env.mesh_shape``,
-    or None for a run of one process that no launcher started."""
-    ignored = unhonoured_env_fields(cfg)
-    if ignored:
-        print("Env fields set but not honoured by the PyTorch port: "
-              + ", ".join(f"{k}={getattr(cfg.Env, k)!r}" for k in ignored))
+    detection to ``Env.debug_nans``, join the process group when there is
+    one, set sequence parallelism on its mesh as ``Env.sequence_parallel``
+    says (off without a group), and return (device, mesh): the device of
+    ``Env.platform`` (``cuda:LOCAL_RANK`` on a group) and the (data, model)
+    ``DeviceMesh`` of ``Env.mesh_shape``, or None for a run of one process
+    that no launcher started."""
     torch.autograd.set_detect_anomaly(cfg.Env.debug_nans)
     np.random.seed(cfg.Env.rand_seed)
     torch.manual_seed(cfg.Env.rand_seed)
     device = config_device(cfg)
+    enable_sequence_parallel(None)
     if not D.maybe_init_distributed(device.type):
         return device, None
     axes = dict(tuple(a) for a in cfg.Env.mesh_shape)
@@ -104,6 +102,8 @@ def setup(cfg: Config):
                          f"{cfg.Predictor.param_free_norm_type!r} takes "
                          "batch statistics, which the port does not "
                          "gather over the data axis")
+    if cfg.Env.sequence_parallel:
+        enable_sequence_parallel(mesh)
     return D.local_device(device.type), mesh
 
 

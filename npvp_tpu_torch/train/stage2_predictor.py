@@ -39,14 +39,19 @@ Each train step's metrics carry ``data_wait_ms``, the time the step waited
 for its batch on the loader's prefetch queue (logged per epoch as
 ``data_wait_ms_train``). ``Env.profile_dir`` traces steps 10-14;
 ``Env.debug_nans`` checks each step's losses before its backward pass.
+With ``Env.sequence_parallel`` on a mesh whose model axis is > 1, the
+VidHRFormer stacks run on H shards over the model axis
+(``core.sequence_parallel``).
 
-Not ported yet: the GAN steps and sequence parallelism (the trainer names
-``Env.sequence_parallel`` when a config sets it).
+:func:`make_gan_steps` is the adversarial step (a PatchGAN discriminator
+on the predicted frames), which, as in the JAX package, no entry point
+calls.
 """
 
 from __future__ import annotations
 
 import copy
+import math
 import sys
 import tempfile
 import traceback
@@ -60,6 +65,7 @@ from npvp_tpu_torch.core.checkpoint import CheckpointManager, load_model_state
 from npvp_tpu_torch.core.config import Config
 from npvp_tpu_torch.core.metrics import (AverageMeters, MetricsLogger,
                                          save_clip_gifs)
+from npvp_tpu_torch.core.sequence_parallel import sp_axis
 from npvp_tpu_torch.core.optim import (is_decoder_param,
                                        make_predictor_optimizer,
                                        predictor_schedule)
@@ -152,6 +158,8 @@ class Steps(NamedTuple):
     train: Callable     # (state, batch, rng) -> metrics
     eval: Callable      # (state, batch, rng) -> metrics with "_val" keys
     place: Callable     # numpy batch -> tensors on the device
+    # (model, batch, rng) -> (loss, metrics, predicted frames, real frames)
+    forward: Callable
 
 
 def make_steps(cfg: Config, ae: FrameAutoEncoder, mode: str,
@@ -186,7 +194,7 @@ def make_steps(cfg: Config, ae: FrameAutoEncoder, mode: str,
                                out.logvar_p, p.KL_beta)
             metrics["KL_loss"] = kl
             loss = loss + kl
-        return loss, {"loss": loss, **metrics}
+        return loss, {"loss": loss, **metrics}, pred_frames, frames
 
     if mode == "rand_context":
         coords = full_coordinate_volume(p.max_T, p.max_H, p.max_W, device)
@@ -212,7 +220,7 @@ def make_steps(cfg: Config, ae: FrameAutoEncoder, mode: str,
 
     def train_step(state: TrainState, batch, rng: Rng):
         state.model.train()
-        loss, metrics = forward(state.model, batch, rows(rng, batch))
+        loss, metrics, *_ = forward(state.model, batch, rows(rng, batch))
         if cfg.Env.debug_nans:
             check_finite(metrics, state.step)
         loss.backward()
@@ -222,13 +230,76 @@ def make_steps(cfg: Config, ae: FrameAutoEncoder, mode: str,
     def eval_step(state: TrainState, batch, rng: Rng):
         state.module.eval()
         with torch.no_grad():
-            _, metrics = forward(state.module, batch, rows(rng, batch))
+            _, metrics, *_ = forward(state.module, batch, rows(rng, batch))
         return {k + "_val": v for k, v in metrics.items()}
 
     def place(batch):
         return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
 
-    return Steps(train_step, eval_step, place)
+    return Steps(train_step, eval_step, place,
+                 lambda model, batch, rng: forward(model, batch,
+                                                   rows(rng, batch)))
+
+
+def make_gan_steps(cfg: Config, ae: FrameAutoEncoder, mode: str,
+                   device):
+    """The adversarial stage-2 step (JAX's ``make_gan_steps``, the
+    reference's deprecated ``training_step_gan``): a PatchGAN on the
+    frames, time folded into the batch, its depth ``min(3, log2(img) −
+    3)``. → (train_step, eval_step, place, init_discriminator):
+
+    - ``init_discriminator(seed)``: the discriminator's state, random
+      weights from ``seed``, AdamW with the predictor's rate and schedule
+      and no clip; it runs in float32 whatever the compute dtype;
+    - ``train_step(state_g, state_d, batch, rng)`` → metrics: the
+      predictor's training-mode forward; the discriminator's update on the
+      detached predictions, then the real frames (its BatchNorms' running
+      statistics moved by the fake batch, then the real one); the
+      predictor's update on its losses plus ``lam_gan``·the adversarial
+      loss of the updated discriminator in eval mode. JAX runs the
+      predictor's forward twice with one key and keeps the second's
+      statistics; one forward gives the same frames and statistics;
+    - ``eval_step``: the plain one, where the attention kernel serves."""
+    from npvp_tpu_torch.nn.discriminator import PatchDiscriminator, gan_loss
+
+    p = cfg.Predictor
+    base = make_steps(cfg, ae, mode, device)
+    n_layers = min(3, max(1, int(math.log2(cfg.Dataset.img_size)) - 3))
+    flat = lambda x: x.reshape((-1,) + tuple(x.shape[2:]))  # noqa: E731
+
+    def init_discriminator(seed: int) -> TrainState:
+        disc = random_init(PatchDiscriminator(
+            cfg.Dataset.img_channels, p.ndf, n_layers), seed).to(device)
+        return TrainState(
+            disc, make_predictor_optimizer(disc.parameters(),
+                                           p.predictor_lr),
+            predictor_schedule(p.predictor_lr, p.use_cosine_scheduler,
+                               p.scheduler_eta_min, p.scheduler_T0))
+
+    def train_step(state_g: TrainState, state_d: TrainState, batch,
+                   rng: Rng):
+        state_g.model.train()
+        loss, metrics, frames, real = base.forward(state_g.model, batch, rng)
+        disc = state_d.model.train()
+        loss_d_fake = gan_loss(disc(flat(frames.detach())), False,
+                               lam=p.lam_gan)
+        loss_d_real = gan_loss(disc(flat(real)), True, lam=p.lam_gan)
+        loss_d = loss_d_fake + loss_d_real
+        loss_d.backward()
+        state_d.apply_gradients()
+        disc.eval().requires_grad_(False)
+        try:
+            adv = gan_loss(disc(flat(frames)), True, lam=p.lam_gan)
+        finally:
+            disc.requires_grad_(True)
+        loss = loss + adv
+        loss.backward()
+        state_g.apply_gradients()
+        metrics = dict(metrics, loss=loss, loss_G_gan=adv, loss_D=loss_d,
+                       loss_D_fake=loss_d_fake, loss_D_real=loss_d_real)
+        return {k: v.detach() for k, v in metrics.items()}
+
+    return train_step, base.eval, base.place, init_discriminator
 
 
 def train(cfg: Config, max_steps: Optional[int] = None, sprites=None,
@@ -267,8 +338,10 @@ def train(cfg: Config, max_steps: Optional[int] = None, sprites=None,
             {k: v for k, v in det_state.items() if k in params},
             predictor.state_dict()))
     if main_rank:
+        sp = sp_axis(torch.zeros(1, 1, p.max_H)) is not None
         print(f"Predictor parameters: {param_count(predictor) / 1e6:.2f}M "
-              f"| mode={mode} | device={device} | mesh={mesh}")
+              f"| mode={mode} | device={device} | mesh={mesh} | "
+              f"sequence_parallel={sp}")
 
     ckpt = CheckpointManager(p.ckpt_save_dir,
                              max_to_keep=p.ckpt_max_keep or p.epochs,

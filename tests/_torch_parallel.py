@@ -11,6 +11,7 @@ every parallel run must equal at the same global batch.
 
 from __future__ import annotations
 
+import contextlib
 import warnings
 from pathlib import Path
 
@@ -19,6 +20,10 @@ import torch
 
 from npvp_tpu_torch.core import distributed as D
 from npvp_tpu_torch.core.checkpoint import CheckpointManager
+from npvp_tpu_torch.core.sequence_parallel import (halo_rows,
+                                                   sequence_parallel,
+                                                   sp_param)
+from npvp_tpu_torch.core.tensor_parallel import shard_tensor_parallel
 from npvp_tpu_torch.models.coords import full_coordinate_volume
 from npvp_tpu_torch.models.inference import VideoPredictor
 from npvp_tpu_torch.models.predictor import build_predictor
@@ -69,7 +74,7 @@ def _models(cfg, ae_sd, pred_sd):
 
 
 def train_scenario(cfg, ae_sd, pred_sd, batches, mesh_shape=None,
-                   fsdp=False, zero_latent=False, ckpt_dir=None):
+                   fsdp=False, zero_latent=False, ckpt_dir=None, sp=False):
     """Stage-2 train steps over the global ``batches`` (one each), then an
     eval step and an eval forward on the first: → the data axis's mean
     metrics of every step, the clip's norm at every update, the gradients
@@ -77,8 +82,16 @@ def train_scenario(cfg, ae_sd, pred_sd, batches, mesh_shape=None,
     eval metrics and predicted features, and the state in the one-process
     layout. ``zero_latent`` draws NPVP-S's latent noise as zeros (the JAX
     package's noise cannot be drawn in torch); ``ckpt_dir`` saves a
-    checkpoint after the steps."""
+    checkpoint after the steps; ``sp`` runs it all under sequence
+    parallelism on the mesh."""
     mesh = _mesh(mesh_shape)
+    with sequence_parallel(mesh if sp else None):
+        return _train(cfg, ae_sd, pred_sd, batches, mesh, fsdp, zero_latent,
+                      ckpt_dir)
+
+
+def _train(cfg, ae_sd, pred_sd, batches, mesh, fsdp, zero_latent,
+           ckpt_dir):
     normal = tl.Rng.normal
     if zero_latent:
         tl.Rng.normal = lambda self, shape, device, split=None: torch.zeros(
@@ -156,6 +169,124 @@ def serve_scenario(cfg, ae_sd, pred_sd, frames, stream, odd,
                    odd=vp.predict(odd, to, tp))
     out["warnings"] = [str(w.message) for w in caught]
     return out
+
+
+@contextlib.contextmanager
+def count_splits():
+    """Inside the context the stacks count themselves when they run on H
+    shards; → the counter, a one-entry list."""
+    from npvp_tpu_torch.nn import vidhrformer as vf
+
+    seen, sp_axis = [0], vf.sp_axis
+
+    def counted(x):
+        sp = sp_axis(x)
+        seen[0] += sp is not None
+        return sp
+
+    vf.sp_axis = counted
+    try:
+        yield seen
+    finally:
+        vf.sp_axis = sp_axis
+
+
+def sp_forward_scenario(model_kw, state, inputs, mesh_shape=None,
+                        train=False):
+    """A port ``NPPredictor(**model_kw)`` with the ``state`` weights, split
+    over the mesh's model axis, run under sequence parallelism on its rows
+    of the global ``inputs`` (``obs``, ``oc``, ``tc``, NPVP-S's ``eps``):
+    in eval mode, or in training mode (its generic path) with the
+    gradients of Σ features² gathered into the one-process layout. → the
+    global features, the gradients, and how many stacks ran on H
+    shards."""
+    from npvp_tpu_torch.models.predictor import NPPredictor
+
+    mesh = _mesh(mesh_shape)
+    model = NPPredictor(**model_kw)
+    model.load_state_dict(state)
+    model.train(train)
+    shards = shard_tensor_parallel(model, mesh)
+    # the EventEncoders' training-mode statistics: the global batch's
+    tl.sync_batchnorm(model, D.axis(mesh, D.DATA_AXIS))
+    rows = lambda t: D.shard_batch(mesh, t)  # noqa: E731
+    eps = inputs.get("eps")
+    with sequence_parallel(mesh), torch.set_grad_enabled(train), \
+            count_splits() as seen:
+        out = model(rows(inputs["obs"]), inputs["oc"], inputs["tc"],
+                    None if eps is None else rows(eps))
+        feats = D.gather_rows(mesh, out.pred_features.detach())
+        grads, data = {}, D.axis(mesh, D.DATA_AXIS)
+        if train:
+            (out.pred_features ** 2).sum().backward()
+            for name, p in model.named_parameters():
+                g = shards.full(name, p.grad).clone()
+                if data is not None:  # the rows' sum over the data axis
+                    torch.distributed.all_reduce(g, group=data.group)
+                grads[name] = g
+    return dict(features=feats.detach(), grads=grads, splits=seen[0])
+
+
+def sp_pieces_scenario(x, g, norm_state, mesh_shape=None):
+    """MlpDWBN's two cross-shard pieces on this rank's rows of the whole
+    (B, H, W, C) ``x`` (one model axis, no data axis): the halo-padded
+    depthwise 3×3 conv and the (H, W, C) LayerNorm, forward and the
+    gradients of Σ out·g (``g``'s rows) against ``x``, the conv's and the
+    norm's parameters. Without a mesh, the whole-tensor ops. → outputs and
+    gradients, whole (rows gathered, parameter gradients as summed)."""
+    import torch.nn.functional as F
+
+    mesh = _mesh(mesh_shape)
+    sp = D.axis(mesh, D.MODEL_AXIS)
+    torch.manual_seed(0)
+    conv = torch.nn.Conv2d(x.shape[-1], x.shape[-1], 3, padding=1,
+                           groups=x.shape[-1])
+    norm = tl.LayerNormHWC(x.shape[1:])
+    norm.load_state_dict(norm_state)
+    h = x.shape[1] // (sp.size if sp else 1)
+    r = sp.rank if sp else 0
+    xs = x[:, r * h:(r + 1) * h].clone().requires_grad_(True)
+    gs = g[:, r * h:(r + 1) * h]
+    if sp is None:
+        y = F.conv2d(xs.permute(0, 3, 1, 2), conv.weight, conv.bias,
+                     padding=1, groups=conv.groups).permute(0, 2, 3, 1)
+    else:
+        y = F.conv2d(halo_rows(xs, sp).permute(0, 3, 1, 2),
+                     sp_param(conv.weight, sp), sp_param(conv.bias, sp),
+                     padding=(0, 1), groups=conv.groups).permute(0, 2, 3, 1)
+    z = norm(y, sp)
+    (z * gs).sum().backward()
+    out = {"conv": y, "norm": z, "x_grad": xs.grad}
+    if sp is not None:
+        out = {k: _gather_h_rows(v, sp) for k, v in out.items()}
+        out.update(_reduce_scatter_both_ways(x, g, sp))
+    params = {"conv.weight": conv.weight.grad, "conv.bias": conv.bias.grad,
+              "norm.weight": norm.weight.grad, "norm.bias": norm.bias.grad}
+    return {**{k: v.detach() for k, v in out.items()}, **params}
+
+
+def _reduce_scatter_both_ways(x, g, sp):
+    """``reduce_scatter_h`` of the partials (rank + 1)·x on H (gloo's form:
+    an all-reduce and a slice) with this rank's gradient of Σ out·g (the
+    whole g), and the same sum in NCCL's form (a tensor reduce-scatter,
+    run here on gloo): → the gathered outputs and the gradient."""
+    from npvp_tpu_torch.core import sequence_parallel as spm
+
+    part = (x[:, None] * (sp.rank + 1)).requires_grad_(True)
+    y = spm.reduce_scatter_h(part, sp)
+    n = y.shape[2]
+    (y * g[:, None].narrow(2, sp.rank * n, n)).sum().backward()
+    tensor = spm._reduce_scatter_rows(part.detach(), sp)
+    return {"rs_gloo": _gather_h_rows(y, sp, 2),
+            "rs_tensor": _gather_h_rows(tensor, sp, 2),
+            "rs_grad": part.grad}
+
+
+def _gather_h_rows(v, sp, dim=1):
+    parts = [torch.empty_like(v) for _ in range(sp.size)]
+    torch.distributed.all_gather(parts, v.detach().contiguous(),
+                                 group=sp.group)
+    return torch.cat(parts, dim)
 
 
 def stage1_scenario(cfg, ae_sd, batches, mesh_shape=None, fsdp=False):
@@ -254,3 +385,58 @@ def assert_serving(got, want):
     for key in ("predict", "frozen", "stream", "odd"):
         np.testing.assert_allclose(got[key].numpy(), want[key].numpy(),
                                    atol=1e-5, err_msg=key)
+
+
+# -- GPipe ------------------------------------------------------------------
+
+def mlp(params, h):
+    """JAX's test block: tanh(h·w + b)."""
+    return torch.tanh(h @ params["w"] + params["b"])
+
+
+def pipeline_mlp_scenario(layers, x, stages, data=1):
+    """``pipeline_apply`` of the MLP stack ``layers`` (dicts of w, b) over
+    the (M, B, D) microbatches ``x`` on a ``data`` × ``stages`` mesh (PP×DP
+    with ``data`` > 1)."""
+    from npvp_tpu_torch.core.pipeline import (make_pipeline_mesh,
+                                              pipeline_apply,
+                                              stack_layer_params)
+
+    mesh = make_pipeline_mesh(stages, data, "cpu")
+    return pipeline_apply(mlp, stack_layer_params(layers), x, mesh=mesh,
+                          data_axis="data" if data > 1 else None)
+
+
+def pipeline_blocks_scenario(block_args, states, inputs, stages):
+    """The decoder blocks (``VidHRFormerBlockDecNAR(*block_args)`` with the
+    ``states``) in eval mode through a ``stages``-stage pipeline: the whole
+    target as one microbatch, and 2 microbatches of the batch with the
+    event query and memory carried in each microbatch. → both outputs."""
+    from torch.func import functional_call
+
+    from npvp_tpu_torch.core.pipeline import (make_pipeline_mesh,
+                                              pipeline_apply,
+                                              stack_layer_params)
+    from npvp_tpu_torch.nn.vidhrformer import VidHRFormerBlockDecNAR
+
+    block = VidHRFormerBlockDecNAR(*block_args).eval()
+    q, m, mem_pos, tgt_pos, tgt0 = (inputs[k] for k in (
+        "query_evt", "memory", "mem_pos", "tgt_pos", "tgt0"))
+    mesh = make_pipeline_mesh(stages, 1, "cpu")
+    stacked = stack_layer_params(states)
+
+    def whole(params, tgt):
+        return functional_call(block, params, (tgt, q, m, mem_pos, tgt_pos))
+
+    def per_mb(params, pack):
+        tgt, qq, mm = pack
+        return (functional_call(block, params,
+                                (tgt, qq, mm, mem_pos, tgt_pos)), qq, mm)
+
+    N = tgt0.shape[0]
+    pack = (tgt0.reshape((N, 1) + tgt0.shape[1:]),
+            q.reshape((N, 1) + q.shape[1:]), m.reshape((N, 1) + m.shape[1:]))
+    return dict(whole=pipeline_apply(whole, stacked, tgt0[None],
+                                     mesh=mesh)[0],
+                microbatched=pipeline_apply(per_mb, stacked, pack,
+                                            mesh=mesh)[0][:, 0])
