@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--phases 1,2]
 
 Builds the temporal-attention kernel from ``npvp_tpu_torch/kernels/csrc``
-with nvcc, then runs twelve phases (all of them by default; ``--phases``
+with nvcc, then runs thirteen phases (all of them by default; ``--phases``
 picks some, for a short check), each printing its own lines:
 
 1. environment: the card's name and power limit, torch, CUDA, nvcc, the
@@ -125,6 +125,18 @@ picks some, for a short check), each printing its own lines:
    lines); (e) 5 adversarial steps of SMMNIST Unified NPVP-S at full
    width (finite losses, ms a step, peak), its eval step's 40 launches
    against the plain path.
+13. SMMNIST as the JAX package draws it and the config generator
+   (``data/native_bindings.py``, ``StochasticMovingMNIST.get_batch``,
+   ``configs/generate.py``): the C++ data library built with the host's
+   g++ (its version and build seconds); its stream against the numpy twin
+   on 64 test clips (bit-equal); the SMMNIST test loader alone (batch 8, an
+   epoch) on the stream and clip by clip, ms a batch; 4 eval steps of
+   SMMNIST Unified NPVP-S as its YAML stands (full width, bf16, random
+   weights from ``Env.rand_seed``) on the test loader's batches with no
+   dev cut, so the clips come from the stream: 40 launches a step, each
+   loss within phase 6's bound of the plain path's, ms a step; the
+   generator's YAMLs written to a temporary directory, each loaded through
+   ``Config`` and equal to the committed one.
 
 The phases run in a child process; this one exits with its code once every
 process the run started has ended (see ``supervise``). Any failure exits
@@ -2828,12 +2840,182 @@ def phase_sequence_pipeline(torch, ta):
     return out
 
 
+# -- phase 13: SMMNIST as the JAX package draws it, the config generator ---
+
+def _stream_vs_twin(np, nb, ds, n=64):
+    """The dataset's C++ batch stream against its numpy twin on ``n`` clips
+    (bit-equal), ms each."""
+    ids = np.arange(n)
+    t0 = time.perf_counter()
+    got = ds.get_batch(ids)
+    stream_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    want = nb.synth_moving_sprites_reference(
+        ds.sprites, ds.seq_len, ds.image_size, ds.num_digits,
+        ds.deterministic, ids.astype(np.uint64) * 2 + int(ds._train))
+    twin_ms = (time.perf_counter() - t0) * 1e3
+    check(got.shape == want.shape == (n, 15, 64, 64, 1),
+          f"stream {got.shape}, twin {want.shape}")
+    differ = int((got != want).sum())
+    print(f"C++ stream vs numpy twin, {n} test clips (15 x 64 x 64): "
+          f"{differ} of {got.size} values differ; {stream_ms:.2f} ms "
+          f"stream, {twin_ms:.2f} ms twin")
+    check(differ == 0, "the C++ stream departs from its numpy twin")
+    return {"clips": n, "values_differing": differ, "stream_ms": stream_ms,
+            "twin_ms": twin_ms}
+
+
+def _loader_ms(np, nb, cfg):
+    """ms per test batch of the SMMNIST loader alone (batch 8, one epoch),
+    on the C++ stream and clip by clip."""
+    from npvp_tpu_torch.data.loader import DataModule
+
+    out = {}
+    available = nb.native_available
+    for path in ("stream", "per_index"):
+        if path == "per_index":
+            nb.native_available = lambda: False
+        try:
+            loader = DataModule(cfg).test_loader("rand_context")
+            t0 = time.perf_counter()
+            n = sum(1 for _ in loader)
+            out[path] = (time.perf_counter() - t0) * 1e3 / n
+        finally:
+            nb.native_available = available
+    print(f"SMMNIST test loader alone, batch {cfg.Dataset.batch_size}, "
+          f"{n} batches: {out['stream']:.3f} ms a batch on the C++ stream, "
+          f"{out['per_index']:.3f} ms clip by clip")
+    return {"batches": n, **{f"{k}_ms_per_batch": v for k, v in out.items()}}
+
+
+def _stream_eval_steps(torch, ta, np, cfg, tmp, n_steps=4):
+    """SMMNIST Unified NPVP-S eval steps at full width on the test loader's
+    first batches (no dev cut: the C++ stream), random weights from
+    ``Env.rand_seed``; 40 launches a step; each loss against the plain
+    path's on the same batch and noise (phase 6's bound)."""
+    import types
+
+    from npvp_tpu_torch.data.loader import DataModule
+    from npvp_tpu_torch.models.predictor import build_predictor
+    from npvp_tpu_torch.nn.layers import Rng
+    from npvp_tpu_torch.train import stage2_predictor as s2
+    from npvp_tpu_torch.train.common import config_device
+
+    p, d = cfg.Predictor, cfg.Dataset
+    cfg.Predictor.resume_AE_ckpt = str(s2.write_random_ae(cfg, tmp))
+    dev, dtype = config_device(cfg), s2.compute_dtype(cfg)
+    ae = s2.load_frozen_ae(cfg, dtype, dev)
+    state = s2.init_predictor_state(
+        cfg, build_predictor(cfg, dtype).to(dev), 1)
+    steps = s2.make_steps(cfg, ae, "rand_context", dev)
+    dm = DataModule(cfg)
+    check(hasattr(dm.dataset("test"), "get_batch"), "no batch stream")
+    print(f"SMMNIST Unified NPVP-S (embed {p.embed_dim}, "
+          f"{p.transformer_layers} + {p.evt_former_num_layers} layers, "
+          f"max_T {p.max_T}), batch {d.batch_size}, {cfg.Env.compute_dtype},"
+          f" exec_mode {p.exec_mode}, test split without a dev cut "
+          f"({len(dm.dataset('test'))} clips)")
+    loader = dm.test_loader("rand_context")
+    batches = []
+    for batch in loader:
+        batches.append(steps.place(batch))
+        if len(batches) == n_steps + 1:
+            break
+    steps.eval(state, batches[0], Rng(99))  # warm-up: cuDNN, cuBLAS choose
+    torch.cuda.synchronize()
+    reset_launches(ta)
+    got, per_step, ms = [], [], []
+    for k, batch in enumerate(batches[1:]):
+        before = sum(ta.LAUNCHES.values())
+        t0 = time.perf_counter()
+        got.append({key: float(v) for key, v in
+                    steps.eval(state, batch, Rng(100 + k)).items()})
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        per_step.append(sum(ta.LAUNCHES.values()) - before)
+    launches = dict(ta.LAUNCHES)
+    check(per_step == [40] * n_steps and launches["attn"] == 0,
+          f"eval steps launched {per_step}, {launches}: not 40 fused each")
+    check(all(np.isfinite(list(g.values())).all() for g in got),
+          f"eval losses {got}")
+    plain = build_predictor(cfg, dtype, exec_mode="xla").to(dev)
+    plain.load_state_dict(state.model.state_dict())
+    arm = types.SimpleNamespace(model=plain, module=plain)
+    worst = 0.0
+    for k, batch in enumerate(batches[1:]):
+        want = {key: float(v) for key, v in
+                steps.eval(arm, batch, Rng(100 + k)).items()}
+        gaps = {key: abs(got[k][key] - want[key]) for key in want}
+        bound = {key: min(2e-2, 1e-3 * abs(want[key]) + 1e-5)
+                 for key in want}
+        print(f"eval step {k} on stream batch {k + 1}: {ms[k]:.2f} ms, "
+              f"{per_step[k]} launches; kernel vs plain " + ", ".join(
+                  f"{key} {got[k][key]:.6f} vs {want[key]:.6f} (|d| "
+                  f"{gaps[key]:.2e}, tol {bound[key]:.2e})" for key in want))
+        far = [key for key in want if not gaps[key] <= bound[key]]
+        check(not far, f"eval step {k}: kernel departs from plain in {far}")
+        worst = max(worst, *gaps.values())
+    eval_ms = statistics.median(ms)
+    print(f"eval step on stream-drawn test clips: {eval_ms:.2f} ms median "
+          f"of {[round(m, 2) for m in ms]}; launches {launches}")
+    return {"eval_ms": eval_ms, "eval_ms_all": ms, "launches": launches,
+            "launches_per_step": per_step, "max_loss_gap": worst}
+
+
+def _generated_configs(tmp):
+    """The generator into a temporary directory; each YAML loads through
+    the port's Config and equals the committed one byte for byte."""
+    from npvp_tpu_torch.configs import generate
+    from npvp_tpu_torch.core.config import load_config
+
+    paths = generate.write_configs(Path(tmp) / "configs")
+    for path in paths:
+        load_config(path)
+        check(path.read_bytes() == (CONFIGS / path.name).read_bytes(),
+              f"{path.name} differs from the committed YAML")
+    print(f"config generator: {len(paths)} YAMLs written to a temporary "
+          f"directory, each loaded through Config and equal to "
+          f"npvp_tpu/configs/")
+    return len(paths)
+
+
+def phase_smmnist_stream(torch, ta):
+    """The C++ data library, the SMMNIST batch stream through the loader
+    and the fused kernel, and the config generator."""
+    import numpy as np
+
+    from npvp_tpu_torch.core.config import load_config
+    from npvp_tpu_torch.data import native_bindings as nb
+    from npvp_tpu_torch.data.smmnist import StochasticMovingMNIST
+
+    nb.build()  # raises with the compiler's output
+    check(nb.native_available(), "the C++ data library does not load")
+    info = nb.BUILD_INFO
+    print(f"C++ data library: {info.get('compiler', 'built earlier')}, "
+          f"{' '.join(nb.CXX_FLAGS)}; built in "
+          f"{info.get('seconds', float('nan')):.2f} s (at its first use in "
+          f"this run) -> {Path(info['library']).relative_to(HERE)}")
+    result = {"build_s": info.get("seconds"),
+              "compiler": info.get("compiler")}
+    result["stream"] = _stream_vs_twin(np, nb,
+                                       StochasticMovingMNIST(train=False))
+    yaml = CONFIGS / "config_SMMNIST_Unified_NPVP-S.yaml"
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = load_config(yaml, ["Predictor.exec_mode=pallas"])
+        check(cfg.Dataset.dev_set_size is None, "the YAML cuts the split")
+        result["loader"] = _loader_ms(np, nb, cfg)
+        result["eval"] = _stream_eval_steps(torch, ta, np, cfg, tmp)
+        result["configs"] = _generated_configs(tmp)
+    print("smmnist_stream " + json.dumps(result))
+    return result
+
+
 def main(argv) -> int:
     import argparse
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases", help="comma-separated phase numbers "
-                        "(1-12) for a short check; the default runs all and "
+                        "(1-13) for a short check; the default runs all and "
                         "prints the record")
     args = parser.parse_args(argv)
     picked = (None if args.phases is None
@@ -2876,7 +3058,8 @@ def main(argv) -> int:
               ("serving options and tools", phase_serving_tools),
               ("parallelism", phase_parallel),
               ("sequence and pipeline parallelism, dry run, GAN",
-               phase_sequence_pipeline)]
+               phase_sequence_pipeline),
+              ("SMMNIST stream, config generator", phase_smmnist_stream)]
     if picked is not None:
         phases = [ph for i, ph in enumerate(phases, 1) if i in picked]
     WORK["dir"] = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -2910,6 +3093,7 @@ def main(argv) -> int:
     par = results["parallelism"]
     sp_pp = results["sequence and pipeline parallelism, dry run, GAN"]
     two12 = sp_pp["two_ranks"]
+    stream = results["SMMNIST stream, config generator"]
     replaces = {"oproj": "npvp_tpu/kernels/temporal_attention.py:136",
                 "attn": "npvp_tpu/kernels/temporal_attention.py:127"}
     run_of = {"oproj": "kernel_oproj", "attn": "kernel_attn"}
@@ -2973,6 +3157,8 @@ def main(argv) -> int:
                     two12["training"]["model2_sp"]["eval_launches"][v],
                 "gpipe_call_per_rank": two12["gpipe"]["launches"][v],
                 "gan_eval_step": sp_pp["gan"]["eval_launches"][v]},
+            "launches_phase13": {
+                "smmnist_stream_eval_steps": stream["eval"]["launches"][v]},
             "sp_shards": ({k: {key: r[key] for key in
                                ("ms", "plain_ms", "full_ms", "max_abs")}
                            for k, r in sp_pp["sp_kernel"].items()}

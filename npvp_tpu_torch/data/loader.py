@@ -25,6 +25,11 @@ from the stream above on every process alike: it is replicated, as
 ``shard_batch`` declares it. (The JAX loader seeds it with the process
 index, while its ``shard_batch`` declares it replicated too.)
 
+A dataset with a ``get_batch`` (SMMNIST's batch renderer) gives each
+batch's clips in one call, as the JAX loader takes it; a wrapped dataset
+(a ``dev_set_size`` cut, the ``deploy`` merge) has none, and its samples
+are fetched one by one as below.
+
 A producer thread assembles the batches ``prefetch`` ahead of the consumer.
 It fetches a loader's first batch itself, timed; if that took at least
 ``POOL_MIN_FETCH_MS`` and ``num_workers`` > 1, the later batches are
@@ -128,7 +133,8 @@ class BatchLoader:
 
     def _workers(self) -> Optional[ProcessPoolExecutor]:
         workers = min(self.num_workers, self.batch_size)
-        if not self._use_pool or workers <= 1:
+        if (not self._use_pool or workers <= 1
+                or hasattr(self.dataset, "get_batch")):
             return None
         if self._pool is None:
             self._pool = ProcessPoolExecutor(
@@ -159,7 +165,9 @@ class BatchLoader:
     def _make_batch(self, sample_ids, batch_rng, pool
                     ) -> Dict[str, np.ndarray]:
         ids = [int(i) for i in sample_ids]
-        if pool is None:
+        if hasattr(self.dataset, "get_batch"):  # SMMNIST's batch renderer
+            clips = self.dataset.get_batch(ids)
+        elif pool is None:
             clips = [_fetch(self.dataset, self.seed, self.epoch, i)
                      for i in ids]
         else:

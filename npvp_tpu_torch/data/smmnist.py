@@ -1,21 +1,41 @@
-"""Stochastic Moving MNIST: procedural bouncing-digit clips (port of the
-per-index renderer of ``npvp_tpu/data/smmnist.py``).
+"""Stochastic Moving MNIST: procedural bouncing-digit clips (port of
+``npvp_tpu/data/smmnist.py``).
 
 Two digit sprites bounce inside the canvas; at a wall the normal velocity is
 resampled away from it and the tangential one resampled (stochastic mode)
-or both reflected (deterministic mode). Clip ``idx`` draws from
-``np.random.SeedSequence([idx, train])``, the same stream as the JAX
-package's per-index renderer, so the two give the same clip from the same
-sprites. The sprites are an argument; the default bank is drawn from a
-small built-in bitmap font with a seeded shift and scale, so no MNIST copy
-and no image library is needed.
+or both reflected (deterministic mode). As in the JAX package, a clip has
+two renderers, each with its own random stream:
+
+- per index (``ds[idx]``): clip ``idx`` draws from
+  ``np.random.SeedSequence([idx, train])``, the JAX package's per-index
+  stream;
+- per batch (:meth:`StochasticMovingMNIST.get_batch`, which the batch
+  loader calls when the dataset is not wrapped): the C++ library of
+  ``data/native_bindings.py``, clip ``idx`` seeded with ``2·idx + train``,
+  the JAX package's native stream; clip by clip as above where that
+  library cannot be built.
+
+The default sprites are the JAX package's glyph bank at the shipped digit
+size (:func:`glyph_bank`), read from a fixture, so no image library is
+needed; other sizes use a bitmap font (:func:`default_sprite_bank`).
+Neither is MNIST: the JAX package reads a local torchvision MNIST where
+one exists, and the repo holds none.
 """
 
 from __future__ import annotations
 
+from pathlib import Path
 from typing import Optional
 
 import numpy as np
+
+from npvp_tpu_torch.data import native_bindings
+
+# the JAX package's glyph banks at the shipped digit size, as uint8 levels
+# (tests/make_torch_glyphs.py writes it, with Pillow 12.1.0)
+GLYPH_FIXTURE = (Path(__file__).resolve().parents[1] / "testdata"
+                 / "smmnist_glyphs.npz")
+GLYPH_SIZE = 32
 
 # 5 × 7 bitmaps of the digits 0-9, one string of rows each
 _FONT = {
@@ -32,11 +52,24 @@ _FONT = {
 }
 
 
+def glyph_bank(train: bool = True) -> np.ndarray:
+    """The JAX package's default SMMNIST sprites (640, 32, 32) float32:
+    ``_render_glyph_bank(32, seed=0 if train else 1)`` of
+    ``npvp_tpu/data/smmnist.py``, PIL's default font drawn by Pillow 12.1.0
+    (the version is stored in the fixture), read from
+    ``testdata/smmnist_glyphs.npz``. Its digits are anti-aliased: a
+    sprite's brightest pixel may be below 1."""
+    with np.load(GLYPH_FIXTURE, allow_pickle=False) as f:
+        return f["train" if train else "test"].astype(np.float32) / 255
+
+
 def default_sprite_bank(digit_size: int, per_digit: int = 64,
                         seed: int = 0) -> np.ndarray:
-    """(10·per_digit, digit_size, digit_size) float32 sprites in [0, 1]:
-    each digit of the bitmap font scaled by a seeded factor (nearest
-    neighbour, with a soft edge) and placed at a seeded offset."""
+    """(10·per_digit, digit_size, digit_size) float32 sprites in [0, 1]
+    drawn from the bitmap font, at any size: each digit scaled by a seeded
+    factor (nearest neighbour, with a soft edge) and placed at a seeded
+    offset; every sprite reaches 1. Not the JAX package's glyphs
+    (:func:`glyph_bank`), which the dataset uses at digit size 32."""
     rng = np.random.default_rng(seed)
     sprites = np.zeros((10 * per_digit, digit_size, digit_size), np.float32)
     for digit in range(10):
@@ -76,7 +109,10 @@ class StochasticMovingMNIST:
         self.deterministic = deterministic
         self.transform = transform
         if sprites is None:
-            sprites = default_sprite_bank(digit_size, seed=0 if train else 1)
+            # the JAX package's glyphs at the shipped size, which is all
+            # the fixture holds; the bitmap font (not JAX's) at any other
+            sprites = (glyph_bank(train) if digit_size == GLYPH_SIZE else
+                       default_sprite_bank(digit_size, seed=0 if train else 1))
         if sprites.shape[1:] != (digit_size, digit_size):
             raise ValueError(f"sprites {sprites.shape[1:]} are not "
                              f"{digit_size}×{digit_size}")
@@ -86,6 +122,23 @@ class StochasticMovingMNIST:
 
     def __len__(self):
         return self._length
+
+    def get_batch(self, indices) -> np.ndarray:
+        """Clips ``indices`` (N, T, S, S, 1) from the C++ library's stream
+        (clip ``idx`` seeded with ``2·idx + train``), each then transformed
+        with no generator, as the JAX package's ``get_batch`` does; clip by
+        clip from the per-index stream where the library is
+        unavailable."""
+        if not native_bindings.native_available():
+            return np.stack([self[int(i)] for i in indices])
+        seeds = np.asarray([2 * int(i) + int(self._train) for i in indices],
+                           np.uint64)
+        out = native_bindings.synth_moving_sprites_batch(
+            self.sprites, self.seq_len, self.image_size, self.num_digits,
+            self.deterministic, seeds)
+        if self.transform is not None:
+            out = np.stack([self.transform(c, None) for c in out])
+        return out
 
     def __getitem__(self, idx: int,
                     rng: Optional[np.random.Generator] = None) -> np.ndarray:

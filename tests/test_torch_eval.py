@@ -126,10 +126,12 @@ def archive(tmp_path_factory):
 @pytest.fixture
 def shared_clips(monkeypatch):
     """Both packages' data modules render the test clips from one sprite
-    bank, on the per-index path (the JAX package's native renderer, where
-    built, has a stream of its own)."""
+    bank, on the per-index path (both packages' native renderers, where
+    built, draw from another stream)."""
     from npvp_tpu.data import loader as jload
     from npvp_tpu.data import native_bindings
+
+    from npvp_tpu_torch.data import native_bindings as tnb
 
     real = jload.StochasticMovingMNIST
 
@@ -141,6 +143,7 @@ def shared_clips(monkeypatch):
     monkeypatch.setattr(jload, "StochasticMovingMNIST", with_sprites)
     monkeypatch.setattr(native_bindings, "synth_moving_sprites_batch",
                         lambda *a, **k: None)
+    monkeypatch.setattr(tnb, "native_available", lambda: False)
     return {"train": SPRITES, "test": SPRITES}
 
 
