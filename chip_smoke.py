@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--phases 1,2]
 
 Builds the temporal-attention kernel from ``npvp_tpu_torch/kernels/csrc``
-with nvcc, then runs thirteen phases (all of them by default; ``--phases``
+with nvcc, then runs fourteen phases (all of them by default; ``--phases``
 picks some, for a short check), each printing its own lines:
 
 1. environment: the card's name and power limit, torch, CUDA, nvcc, the
@@ -29,8 +29,8 @@ picks some, for a short check), each printing its own lines:
    library call, summed over a flagship forward, a SMMNIST eval step and a
    Cityscapes VFP eval step;
 6. stage-2 training at full width (SMMNIST Unified NPVP-S, bf16, random
-   frozen AE weights from a seed written to a checkpoint): 20 train steps
-   and one validation pass of 20 eval steps through
+   frozen AE weights from a seed written to a checkpoint): 10 train steps
+   and one validation pass of 10 eval steps through
    ``npvp_tpu_torch.train.stage2_predictor.train`` with the kernel in the
    eval step: ms per train and eval step, clips/s, peak memory, kernel
    launches per step (40 per eval step, none in a train step, 32 for the
@@ -49,7 +49,7 @@ picks some, for a short check), each printing its own lines:
    otherwise keeps them in the producer thread);
 8. the chain on phase 7's AE checkpoint directory: stage-2 training of
    SMMNIST Unified NPVP-S at full width (4 steps, its GIF), then
-   ``evaluate`` of the five tasks, best-of-2 over 2 test batches in bf16
+   ``evaluate`` of the five tasks, best-of-2 over 1 test batch in bf16
    with the kernel and with the plain path (each task's PSNR within
    0.01 dB, SSIM and MSE within 1e-3 of their size plus 1e-5, launches =
    predictor forwards × 32), the
@@ -64,7 +64,7 @@ picks some, for a short check), each printing its own lines:
    KTH (batch 8 × 20 frames) and Cityscapes (batch 8 × 12) at 1 worker and
    at the config's count (equal batches; ms per batch; decode ms per frame
    split into inflate and unfilter); KTH Unified NPVP-S as its YAML stands
-   (the flagship) trained 10 steps and validated from PNG folders through
+   (the flagship) trained 6 steps and validated from PNG folders through
    ``stage2_predictor.train`` (step ms, clips/s, peak memory, 40 launches per
    eval step and none per train step, the eval losses against the plain
    path, the wait for each batch), then again with the frames decoded in
@@ -91,7 +91,7 @@ picks some, for a short check), each printing its own lines:
 
 11. parallelism (``npvp_tpu_torch.core.distributed``, tensor parallelism,
    DDP/FSDP, ``VideoPredictor.shard``): (a) SMMNIST Unified NPVP-S as its
-   YAML stands, 10 train steps and a validation pass through
+   YAML stands, 4 train steps and a validation pass through
    ``stage2_predictor.train`` without a process group, in DDP and with
    ``Env.fsdp`` on an NCCL group of one rank (losses within phase 6's
    bound of the plain arm's, 40 launches per eval step, ms per step, peak
@@ -102,7 +102,7 @@ picks some, for a short check), each printing its own lines:
    (bf16 2e-2), ms per shard against the full launch; (c) two ranks on the
    card over gloo: the flagship through ``VideoPredictor.shard`` at data 2
    and at model 2 (batch 64, VFP 10→10) against one device's
-   ``freeze_task`` (max|d| < 0.1, 32 launches a forward per rank), and 4
+   ``freeze_task`` (max|d| < 0.1, 32 launches a forward per rank), and 2
    stage-2 steps at data 2 against the one-process run at batch 16
    (phase 6's bound); over NCCL with FSDP where the host has two cards,
    else one line says it was not run.
@@ -114,8 +114,8 @@ picks some, for a short check), each printing its own lines:
    two ranks sharing the card over gloo: the flagship served through
    ``VideoPredictor.shard`` at model 2 under ``sequence_parallel(mesh)``
    against one device (max|d| < 0.1, 32 launches a forward per rank, ms
-   a forward); (b) 4 steps of SMMNIST Unified NPVP-S at model 2 with
-   sequence parallelism (2 without, for the peak) against one process at
+   a forward); (b) 2 steps of SMMNIST Unified NPVP-S at model 2 with
+   sequence parallelism (1 without, for the peak) against one process at
    batch 8 (phase 6's bound), peak GiB a rank, the eval step's 40
    launches, and the SP spans and collectives of one profiled step; (c)
    GPipe of the flagship's 8 decoder blocks at 2 stages × 4 microbatches
@@ -137,11 +137,35 @@ picks some, for a short check), each printing its own lines:
    loss within phase 6's bound of the plain path's, ms a step; the
    generator's YAMLs written to a temporary directory, each loaded through
    ``Config`` and equal to the committed one.
+14. the report tools (``npvp_tpu_torch/tools/{quality_report,
+   exec_mode_fidelity,window_drift,frontier,convergence_report,
+   memory_report}.py``) through their ``main``, on random-weight archives
+   (``save_weights``, seeded) of SMMNIST Unified NPVP-D and -S at full
+   width and the seeded SMMNIST test split, 2 batches of 8 an evaluation,
+   bf16 with the kernel: the quality report of the five tasks of NPVP-D
+   (best-of-1) and of VFP of NPVP-S (best-of-2; launches = batches x
+   draws x 32 a call);
+   the four exec-mode arms (the pallas arm's PSNR within 0.01 dB of the
+   bf16 arm's, its 64 launches the only ones; then the arms' predicted
+   frames and the predictor's features on one test batch: the pallas
+   arm's frames within phase 4's max|d| < 0.1 of the bf16 arm's, and its
+   features' mean |d| to the bf16 arm's at most twice the fp32 arm's);
+   window drift (3 forwards a batch); the
+   frontier of ``full``, ``L4`` and ``L4evt2`` served from one archive
+   (32 / 20 / 16 launches a forward, frames/s round-robin, VFP quality);
+   the convergence report of a three-epoch stage-1 log; the memory report
+   at data 4 and model 2 beside ``torch.cuda.memory_allocated`` after
+   phase 6's train state. Launches are counted for each kernel, in each
+   tool and in each ``evaluate`` call it makes (the attention-only kernel
+   none); every number the tools write is finite; each tool's wall
+   seconds are printed.
 
 The phases run in a child process; this one exits with its code once every
 process the run started has ended (see ``supervise``). Any failure exits
-non-zero; without CUDA it exits non-zero at once. The last three lines are the kernels' JSON record, the card's name and power limit,
-and ``{"ok": true, "device": {...}}``.
+non-zero; without CUDA it exits non-zero at once. After the phases one
+line gives each phase's seconds; the last three lines are the kernels'
+JSON record, the card's name and power limit, and ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -159,7 +183,7 @@ import traceback
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
-CONFIGS = HERE / "npvp_tpu" / "configs"
+CONFIGS = HERE / "npvp_tpu_torch" / "configs"
 # phase 7 trains the AE into WORK["dir"]/ae; phase 8 reads it there
 WORK = {}
 
@@ -686,9 +710,8 @@ def phase_training(torch, ta):
     from npvp_tpu_torch.nn.layers import Rng
     from npvp_tpu_torch.train import stage2_predictor as s2
 
-    steps_wanted = 20
-    yaml = HERE / "npvp_tpu" / "configs" / \
-        "config_SMMNIST_Unified_NPVP-S.yaml"
+    steps_wanted = 10
+    yaml = CONFIGS / "config_SMMNIST_Unified_NPVP-S.yaml"
     with tempfile.TemporaryDirectory() as tmp:
         cfg = load_config(yaml, [
             "Predictor.exec_mode=pallas", "Predictor.epochs=1",
@@ -721,6 +744,7 @@ def phase_training(torch, ta):
         state = s2.train(cfg, on_step=on_step)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        WORK["phase6_allocated"] = torch.cuda.memory_allocated()
         launches = dict(ta.LAUNCHES)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         tr, ev = record["train"], record["eval"]
@@ -981,12 +1005,12 @@ def _stage2_over_ae(torch, ta, np):
 
 
 def _evaluate_arms(torch, ta, np, cfg):
-    """The five tasks, best-of-2 over 2 test batches, bf16, kernel and plain
+    """The five tasks, best-of-2 over 1 test batch, bf16, kernel and plain
     arms; → per task its launches, seconds and predicted frames/s."""
     from npvp_tpu_torch.eval.evaluate import _task_split, evaluate
 
     d, p = cfg.Dataset, cfg.Predictor
-    batches, samples = 2, 2
+    batches, samples = 1, 2
     kw = dict(max_batches=batches, num_samples=samples, baseline=True,
               ae_ceiling=True, dtype=torch.bfloat16, device="cuda")
     evaluate(cfg, task="VFP", **{**kw, "max_batches": 1},
@@ -1179,7 +1203,7 @@ def phase_chain(torch, ta):
 # -- phase 9: the frame-folder data layer and the new models ----------------
 
 def smoke_config(name, overrides=()):
-    """``npvp_tpu/configs/config_<name>.yaml`` as it stands, with
+    """``npvp_tpu_torch/configs/config_<name>.yaml`` as it stands, with
     ``overrides`` (run directories, data directories, step counts)."""
     from npvp_tpu_torch.core.config import load_config
 
@@ -1363,7 +1387,7 @@ def _summary(d, record, peak, wall, what):
 
 
 def _kth_flagship(torch, ta, np, root, work):
-    """KTH Unified NPVP-S as its YAML stands, from PNG folders: 10 train
+    """KTH Unified NPVP-S as its YAML stands, from PNG folders: 6 train
     steps and the validation pass through ``stage2_predictor.train``."""
     from npvp_tpu_torch.data.loader import DataModule
     from npvp_tpu_torch.nn.layers import Rng
@@ -1373,7 +1397,7 @@ def _kth_flagship(torch, ta, np, root, work):
         f"Dataset.dir={root}/KTH", "Predictor.exec_mode=pallas",
         "Predictor.epochs=1", f"Predictor.ckpt_save_dir={work}/kth",
         f"Predictor.tensorboard_save_dir={work}/kth_log",
-        "Dataset.dev_set_size=80"])
+        "Dataset.dev_set_size=48"])
     p, d = cfg.Predictor, cfg.Dataset
     cfg.Predictor.resume_AE_ckpt = str(s2.write_random_ae(cfg, work))
     print(f"KTH Unified NPVP-S (embed {p.embed_dim}, {p.transformer_layers} "
@@ -1384,7 +1408,7 @@ def _kth_flagship(torch, ta, np, root, work):
     state, record, launches, peak, wall = _timed_train(
         torch, ta, np, s2.train, cfg, {"train": "loss", "eval": "loss_val"})
     tr, ev = record["train"], record["eval"]
-    check(len(tr) == 10 and state.step == 10,
+    check(len(tr) == 6 and state.step == 6,
           f"{len(tr)} train steps, state.step {state.step}")
     check(len(ev) >= 1, "no eval step ran")
     check(all(r["launches"] == 0 for r in tr),
@@ -1990,7 +2014,7 @@ def _largest_gap(got, want):
 
 
 def _one_rank_arms(torch, ta):
-    """(a): SMMNIST Unified NPVP-S as its YAML stands, 10 train steps and a
+    """(a): SMMNIST Unified NPVP-S as its YAML stands, 4 train steps and a
     validation pass through ``stage2_predictor.train`` without a group,
     then on an NCCL group of one rank in DDP and with ``Env.fsdp``."""
     import torch.distributed as dist
@@ -2012,7 +2036,7 @@ def _one_rank_arms(torch, ta):
             "Predictor.exec_mode=pallas", "Predictor.epochs=1",
             f"Predictor.ckpt_save_dir={tmp}/{arm}/ckpt",
             f"Predictor.tensorboard_save_dir={tmp}/{arm}/log",
-            "Dataset.dev_set_size=80", "Env.visual_callback=false",
+            "Dataset.dev_set_size=32", "Env.visual_callback=false",
             f"Env.fsdp={'true' if arm == 'fsdp' else 'false'}"])
 
     ae_path = str(s2.write_random_ae(config("plain"), tmp))
@@ -2055,7 +2079,7 @@ def _one_rank_arms(torch, ta):
         record["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
         record["kind"] = type(state.model).__name__
         record["wall_s"] = time.perf_counter() - t_arm
-        check(len(record["train"]) == 10 and state.step == 10,
+        check(len(record["train"]) == 4 and state.step == 4,
               f"{arm}: {len(record['train'])} train steps")
         check(len(record["eval"]) >= 1 and all(
             n == 40 for n in record["launches"]),
@@ -2235,7 +2259,7 @@ def _serve_two(torch, ta, D, rank, dev):
 
 
 def _train_two(torch, ta, D, rank, dev, tmp, fsdp):
-    """(c) training: 4 stage-2 steps of SMMNIST Unified NPVP-S at data 2
+    """(c) training: 2 stage-2 steps of SMMNIST Unified NPVP-S at data 2
     (8 rows a rank) against the one-process run at batch 16 (rank 0)."""
     import torch.distributed as dist
 
@@ -2255,7 +2279,7 @@ def _train_two(torch, ta, D, rank, dev, tmp, fsdp):
     dtype = s2.compute_dtype(cfg)
     ae = s2.load_frozen_ae(cfg, dtype, dev)
     loader = DataModule(cfg).train_loader("rand_context")
-    batches = [b for _, b in zip(range(4), loader)]
+    batches = [b for _, b in zip(range(2), loader)]
     loader.close()
     base = Rng(cfg.Env.rand_seed)
 
@@ -2386,7 +2410,7 @@ def _two_ranks(torch, ta):
                   f"0.1), launches per rank per forward {r['launches']}, "
                   f"{r['ms_per_forward']:.2f} ms/forward")
         t = res["training"]
-        print(f"(c) {backend}{' + FSDP' if fsdp else ''}: 4 stage-2 steps "
+        print(f"(c) {backend}{' + FSDP' if fsdp else ''}: 2 stage-2 steps "
               f"at data 2 (8 rows a rank): losses "
               f"{[round(x, 5) for x in t['losses']]} vs one process at "
               f"batch 16 {[round(x, 5) for x in t['one_process_losses']]}, "
@@ -2521,8 +2545,8 @@ def _sp_serve(torch, ta, D, rank, dev):
 
 
 def _sp_train(torch, ta, D, rank, dev, tmp):
-    """(b) 4 stage-2 steps of SMMNIST Unified NPVP-S (its YAML as it
-    stands) at model 2 with sequence parallelism (and 2 without, for the
+    """(b) 2 stage-2 steps of SMMNIST Unified NPVP-S (its YAML as it
+    stands) at model 2 with sequence parallelism (and 1 without, for the
     peak memory), against one process at the same global batch (rank 0);
     the eval step's launches; a profiled SP step."""
     import torch.distributed as dist
@@ -2543,11 +2567,11 @@ def _sp_train(torch, ta, D, rank, dev, tmp):
     dtype = s2.compute_dtype(cfg)
     ae = s2.load_frozen_ae(cfg, dtype, dev)
     loader = DataModule(cfg).train_loader("rand_context")
-    batches = [b for _, b in zip(range(4), loader)]
+    batches = [b for _, b in zip(range(2), loader)]
     loader.close()
     base = Rng(cfg.Env.rand_seed)
 
-    def run(mesh, sp, n_steps=4):
+    def run(mesh, sp, n_steps=2):
         state = s2.init_predictor_state(
             cfg, build_predictor(cfg, dtype).to(dev), 4)
         state = parallelize_state(state, mesh, False, s2.fsdp_units)
@@ -2583,7 +2607,7 @@ def _sp_train(torch, ta, D, rank, dev, tmp):
     want = run(None, False) if rank == 0 else None
     dist.barrier()
     mesh = D.make_mesh(1, 2, cfg.Dataset.batch_size, "cuda")
-    tp_only = run(mesh, False, n_steps=2)  # its peak, for comparison
+    tp_only = run(mesh, False, n_steps=1)  # its peak, for comparison
     got = run(mesh, True)
     check(got["eval_launches"] == {"oproj": 40, "attn": 0},
           f"SP eval step: rank {rank} launched {got['eval_launches']}")
@@ -2649,7 +2673,7 @@ def _gpipe(torch, ta, rank, dev):
                  for t in (tgt0, query, memory))
     stacked = stack_layer_params(blocks)
     ms = []
-    for _ in range(2):
+    for _ in range(1):
         reset_launches(ta)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2975,7 +2999,7 @@ def _generated_configs(tmp):
               f"{path.name} differs from the committed YAML")
     print(f"config generator: {len(paths)} YAMLs written to a temporary "
           f"directory, each loaded through Config and equal to "
-          f"npvp_tpu/configs/")
+          f"npvp_tpu_torch/configs/")
     return len(paths)
 
 
@@ -3010,12 +3034,312 @@ def phase_smmnist_stream(torch, ta):
     return result
 
 
+# -- phase 14: the report tools on the card ---------------------------------
+
+# kernel launches a forward of the frontier's variants: encoder layers x 2
+# plus decoder layers x 3
+FRONTIER_LAUNCHES = {"full": 32, "L4": 20, "L4evt2": 16}
+# the pallas arm's predicted features (the AE decoder's input) may sit
+# from the bf16 arm's at most this many times the fp32 arm's mean |d|: a
+# correct kernel sits at 0.885 of it on an H100, a kernel with q halved at
+# 5.8 and one without its mask at 4.6 (random weights flatten the decoded
+# frames, where those faults move less than bf16 does)
+FEATURES_RATIO = 2
+
+
+def _finite_json(tree, where):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            _finite_json(v, f"{where}.{k}")
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            _finite_json(v, f"{where}[{i}]")
+    else:
+        check(not isinstance(tree, float) or math.isfinite(tree),
+              f"{where} = {tree}")
+
+
+def _write_archives(torch, work):
+    """Random-weight archives (seeded) of SMMNIST Unified NPVP-D and -S at
+    full width, through the port's ``save_weights``; the two are written
+    in two threads (compression holds no lock)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from npvp_tpu_torch.core.config import load_config
+    from npvp_tpu_torch.models.inference import VideoPredictor
+    from npvp_tpu_torch.tools.weights import save_weights
+
+    def write(v):
+        yaml = CONFIGS / f"config_SMMNIST_Unified_NPVP-{v}.yaml"
+        cfg = load_config(yaml)
+        t0 = time.perf_counter()
+        vp = VideoPredictor.from_random_init(cfg, torch.float32, seed=14,
+                                             device="cuda")
+        path = Path(work) / f"SMMNIST_Unified_NPVP-{v}" / "weights.npz"
+        save_weights(path, vp.ae, vp.predictor, {"seed": 14})
+        return cfg, dict(yaml=yaml, npz=path, s=time.perf_counter() - t0,
+                         mib=path.stat().st_size / 2 ** 20)
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        written = dict(zip(("D", "S"), pool.map(write, ("D", "S"))))
+    wall = time.perf_counter() - t0
+    out = {}
+    for v, (cfg, a) in written.items():
+        p = cfg.Predictor
+        out[v] = a
+        print(f"archive NPVP-{v}: embed {p.embed_dim}, "
+              f"{p.evt_former_num_layers} EVT-former + "
+              f"{p.transformer_layers} decoder layers, {a['mib']:.1f} MiB, "
+              f"written in {a['s']:.1f} s")
+    print(f"both archives in {wall:.1f} s")
+    return out
+
+
+def _stage1_log(torch, work):
+    """Three epochs of two stage-1 steps (the SMMNIST AE config at full
+    width), the trainer's output kept as its log."""
+    import contextlib
+    import io
+
+    from npvp_tpu_torch.core.config import load_config
+    from npvp_tpu_torch.train import stage1_ae as s1
+
+    cfg = load_config(CONFIGS / "config_SMMNIST_Autoencoder.yaml", [
+        "AE.epochs=3", "Env.visual_callback=false",
+        f"AE.ckpt_save_dir={work}/conv_ae",
+        f"AE.tensorboard_save_dir={work}/conv_ae_log",
+        "Dataset.dev_set_size=16"])
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        s1.train(cfg)
+    log = Path(work) / "stage1.log"
+    log.write_text(out.getvalue())
+    return log
+
+
+def _fidelity_frames(torch, ta, arch):
+    """The exec-mode arms' outputs themselves, on the first test batch of
+    8 clips (NPVP-D: no latent draw): the predicted frames and the
+    predictor's features (the AE decoder's input) of the pallas arm
+    against the bf16 arm's, beside the fp32 arm's distance from bf16."""
+    from npvp_tpu_torch.core.config import load_config
+    from npvp_tpu_torch.data.loader import DataModule
+    from npvp_tpu_torch.models.inference import VideoPredictor
+    from npvp_tpu_torch.tools.weights import load_weights
+
+    cfg = load_config(arch["D"]["yaml"])
+    loader = DataModule(cfg).test_loader()
+    batch = next(iter(loader))
+    loader.close()
+    ae_vars, pred_vars, _ = load_weights(arch["D"]["npz"])
+    saved = dict(ta.LAUNCHES)
+    reset_launches(ta)
+    got = {"frames": {}, "features": {}}
+    for arm, dtype, mode in (("fp32", torch.float32, None),
+                             ("bf16", torch.bfloat16, None),
+                             ("pallas", torch.bfloat16, "pallas")):
+        vp = VideoPredictor.from_variables(cfg, ae_vars, pred_vars, dtype,
+                                           mode, "cuda")
+        hook = vp.predictor.register_forward_hook(
+            lambda m, i, o, arm=arm: got["features"].__setitem__(
+                arm, o.pred_features.float()))
+        got["frames"][arm] = vp.vfp(
+            batch["past"], cfg.Dataset.test_num_future_frames).float()
+        hook.remove()
+        del vp
+    launched = dict(ta.LAUNCHES)
+    ta.LAUNCHES.update(saved)
+    out = {"launches": launched,  # the pallas arm's forward alone
+           "finite": all(bool(torch.isfinite(t).all())
+                         for arms in got.values() for t in arms.values())}
+    for what, arms in got.items():
+        d = {arm: (arms[arm] - arms["bf16"]).abs()
+             for arm in ("pallas", "fp32")}
+        out[what] = {arm: dict(max_abs=x.max().item(),
+                               mean_abs=x.mean().item())
+                     for arm, x in d.items()}
+        r = out[what]
+        print(f"exec-mode {what} {tuple(arms['bf16'].shape)}, first test "
+              f"batch: pallas vs bf16 max|d|={r['pallas']['max_abs']:.3e} "
+              f"mean|d|={r['pallas']['mean_abs']:.3e}; fp32 vs bf16 "
+              f"max|d|={r['fp32']['max_abs']:.3e} "
+              f"mean|d|={r['fp32']['mean_abs']:.3e}; ratio of the means "
+              f"{r['pallas']['mean_abs'] / r['fp32']['mean_abs']:.3f}"
+              + (f" (bound {FEATURES_RATIO})" if what == "features"
+                 else ""))
+    return out
+
+
+def phase_reports(torch, ta):
+    """The six report tools of ``npvp_tpu_torch/tools`` on the card, on
+    random-weight archives of SMMNIST Unified NPVP-D and -S at full width
+    and the seeded SMMNIST test split, bf16 with the kernel."""
+    from npvp_tpu_torch.core.config import load_config
+    from npvp_tpu_torch.models.predictor import build_predictor
+    from npvp_tpu_torch.tools import (convergence_report,
+                                      exec_mode_fidelity, frontier,
+                                      memory_report, quality_report,
+                                      window_drift)
+
+    work = Path(WORK["dir"]) / "reports"
+    arch = _write_archives(torch, work)
+    walls, launches, per_call, reports = {}, {}, {}, {}
+    calls = []
+
+    def counted(evaluate):
+        def each_call(*a, **kw):
+            before = dict(ta.LAUNCHES)
+            res = evaluate(*a, **kw)
+            calls.append({k: ta.LAUNCHES[k] - before[k] for k in before})
+            return res
+        return each_call
+
+    def run(key, tool, argv, out_json):
+        """``tool.main(argv)``; its kernel launches, in all and for each
+        ``evaluate`` call it makes."""
+        reset_launches(ta)
+        calls.clear()
+        evaluate = getattr(tool, "evaluate", None)
+        if evaluate is not None:
+            tool.evaluate = counted(evaluate)
+        t0 = time.perf_counter()
+        try:
+            tool.main([str(a) for a in argv])
+        finally:
+            if evaluate is not None:
+                tool.evaluate = evaluate
+        torch.cuda.synchronize()
+        walls[key] = time.perf_counter() - t0
+        launches[key] = dict(ta.LAUNCHES)
+        per_call[key] = list(calls)
+        if out_json is not None:
+            reports[key] = json.loads(Path(out_json).read_text())
+            _finite_json(reports[key], key)
+        return reports.get(key)
+
+    def oproj(n):
+        return {"oproj": n, "attn": 0}
+
+    def common(v, pallas=True):
+        a = arch[v]
+        return (["--config_path", a["yaml"], "--device", "cuda",
+                 "--override", f"Predictor.ckpt_save_dir={a['npz']}",
+                 f"Predictor.resume_AE_ckpt={a['npz']}"]
+                + (["Predictor.exec_mode=pallas"] if pallas else []))
+
+    mb = 2  # test batches of 8 clips an evaluation
+    # NPVP-D on the five tasks, NPVP-S best-of-2 on VFP
+    for v, samples, tasks in (("D", 1, quality_report.TASKS),
+                              ("S", 2, ("VFP",))):
+        key = f"quality_{v}"
+        rep = run(key, quality_report, common(v) + [
+            "--max_batches", mb, "--num_samples", samples, "--dtype",
+            "bfloat16", "--tasks", *tasks, "--out_dir", work / key],
+            work / key / "quality.json")
+        check(list(rep["tasks"]) == list(tasks),
+              f"{key}: tasks {list(rep['tasks'])}")
+        want = [oproj(mb * samples * 32)] * len(tasks)
+        check(per_call[key] == want,
+              f"{key}: launches a call {per_call[key]}, not {want}")
+    # the fp32 and bf16 arms on the config's plain path, pallas on the
+    # kernel, int8 on its own products
+    rep = run("fidelity", exec_mode_fidelity, common("D", pallas=False) + [
+        "--max_batches", mb, "--out_dir", work / "fidelity"],
+        work / "fidelity" / "exec_mode_fidelity.json")
+    modes = rep["modes"]
+    gap = abs(modes["pallas"]["PSNR"] - modes["bf16"]["PSNR"])
+    want = [oproj(mb * 32 if m == "pallas" else 0) for m in modes]
+    check(per_call["fidelity"] == want,
+          f"exec_mode_fidelity: launches an arm {per_call['fidelity']}, "
+          f"not {want} (the pallas arm alone)")
+    print("exec_mode_fidelity: " + "; ".join(
+        f"{k} PSNR {r['PSNR']:.4f} SSIM {r['SSIM']:.5f}"
+        for k, r in modes.items()) + f"; |pallas - bf16| {gap:.5f} dB "
+        "(bound 0.01)")
+    frames = _fidelity_frames(torch, ta, arch)
+    check(gap <= 0.01, f"pallas arm {gap:.4f} dB from the bf16 arm")
+    check(frames["finite"], "exec-mode outputs: not finite")
+    check(frames["launches"] == oproj(32),
+          f"exec-mode outputs: {frames['launches']} launches, not 32")
+    check(frames["frames"]["pallas"]["max_abs"] < 0.1,
+          f"pallas arm's frames max|d| "
+          f"{frames['frames']['pallas']['max_abs']:.3e} to the bf16 arm's")
+    r = frames["features"]
+    check(r["pallas"]["mean_abs"] <= FEATURES_RATIO * r["fp32"]["mean_abs"],
+          f"pallas arm's features mean|d| {r['pallas']['mean_abs']:.3e} to "
+          f"the bf16 arm's, over {FEATURES_RATIO} x the fp32 arm's "
+          f"{r['fp32']['mean_abs']:.3e}")
+    run("window_drift", window_drift, common("D") + [
+        "--max_batches", mb, "--dtype", "bfloat16", "--out",
+        work / "window_drift.json"], work / "window_drift.json")
+    # direct (1 forward) and windowed (2) a batch
+    check(launches["window_drift"] == oproj(mb * 3 * 32),
+          f"window_drift: {launches['window_drift']} launches")
+    rep = run("frontier", frontier, common("D") + [
+        "--variants", *FRONTIER_LAUNCHES, "--fps_blocks", 2,
+        "--fps_calls", 2, "--quality", "--tasks", "VFP", "--max_batches",
+        mb, "--dtype", "bfloat16", "--out_dir", work / "frontier"],
+        work / "frontier" / "frontier.json")
+    fps = {k: r["launches_per_forward"] for k, r in rep["fps"].items()}
+    check(fps == {k: oproj(n) for k, n in FRONTIER_LAUNCHES.items()},
+          f"frontier launches a forward {fps}, not {FRONTIER_LAUNCHES}")
+    want = [oproj(mb * n) for n in FRONTIER_LAUNCHES.values()]
+    check(per_call["frontier"] == want,
+          f"frontier quality: launches a variant {per_call['frontier']}")
+    t0 = time.perf_counter()
+    log = _stage1_log(torch, work)
+    stage1_s = time.perf_counter() - t0
+    rep = run("convergence", convergence_report, [
+        log, "--metric", "L1_loss_valid", "--stride", 1, "--device", "cuda",
+        "--out", work / "convergence.md"], work / "convergence.json")
+    check(rep["epochs"] == 3, f"convergence: {rep['epochs']} epochs")
+    run("memory", memory_report, ["--data", 4, "--model", 2, "--device",
+                                  "cuda"], None)
+    rows = dict(memory_report.rows(4, 2))
+    cfg6 = load_config(CONFIGS / "config_SMMNIST_Unified_NPVP-S.yaml")
+    with torch.device("meta"):
+        pred6 = build_predictor(cfg6, torch.bfloat16)
+    own6 = memory_report.state_bytes(pred6, 1, 1, fsdp=False, tp=False)
+    alloc6 = WORK.get("phase6_allocated")
+
+    print("report tools, wall s: " + json.dumps(
+        {k: round(v, 2) for k, v in walls.items()})
+          + f" (the stage-1 log's 6 steps: {stage1_s:.1f} s)")
+    print(f"kernel launches per evaluate call ({mb} test batches of 8): "
+          f"NPVP-D best-of-1 {per_call['quality_D']}, NPVP-S best-of-2 "
+          f"{per_call['quality_S']}, exec-mode arms {per_call['fidelity']}, "
+          f"frontier variants {per_call['frontier']}; window_drift "
+          f"{launches['window_drift']} in {mb} batches")
+    print(f"frontier on {nvidia_smi_line()}: " + "; ".join(
+        f"{k} {r['fps']:.1f} frames/s ({r['sec_per_batch_min'] * 1e3:.2f} "
+        f"ms a batch of 64, speedup {r['speedup_vs_full_median']:.3f}, "
+        f"launches a forward {r['launches_per_forward']})"
+        for k, r in reports["frontier"]["fps"].items()))
+    print(f"memory_report (data 4, model 2): replicated "
+          f"{rows['replicated (plain DP)']:.1f} MB (flagship); the same "
+          f"count for phase 6's config {own6 / 2 ** 20:.1f} MB; "
+          "torch.cuda.memory_allocated after phase 6's train state: "
+          + (f"{alloc6 / 2 ** 20:.1f} MB" if alloc6 is not None
+             else "phase 6 not run"))
+    result = dict(walls=walls, launches=launches, per_call=per_call,
+                  frontier_launches=fps, fidelity_gap_db=gap,
+                  fidelity_frames=frames,
+                  memory_mb=rows, phase6_config_mb=own6 / 2 ** 20,
+                  phase6_allocated_mb=(None if alloc6 is None
+                                       else alloc6 / 2 ** 20),
+                  archives={v: {"mib": a["mib"], "s": a["s"]}
+                            for v, a in arch.items()})
+    print("reports " + json.dumps(result))
+    return result
+
+
 def main(argv) -> int:
     import argparse
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases", help="comma-separated phase numbers "
-                        "(1-13) for a short check; the default runs all and "
+                        "(1-14) for a short check; the default runs all and "
                         "prints the record")
     args = parser.parse_args(argv)
     picked = (None if args.phases is None
@@ -3059,10 +3383,12 @@ def main(argv) -> int:
               ("parallelism", phase_parallel),
               ("sequence and pipeline parallelism, dry run, GAN",
                phase_sequence_pipeline),
-              ("SMMNIST stream, config generator", phase_smmnist_stream)]
+              ("SMMNIST stream, config generator", phase_smmnist_stream),
+              ("report tools", phase_reports)]
     if picked is not None:
         phases = [ph for i, ph in enumerate(phases, 1) if i in picked]
     WORK["dir"] = tempfile.mkdtemp(prefix="chip_smoke_")
+    seconds = {}
     try:
         for name, fn in phases:
             print(f"\n== {name}", flush=True)
@@ -3073,12 +3399,13 @@ def main(argv) -> int:
                 traceback.print_exc(file=sys.stdout)
                 print(f"-- {name}: FAILED", flush=True)
                 return 1
-            print(f"-- {name}: ok ({time.perf_counter() - t0:.1f} s)",
-                  flush=True)
+            seconds[name] = round(time.perf_counter() - t0, 1)
+            print(f"-- {name}: ok ({seconds[name]:.1f} s)", flush=True)
     finally:
         shutil.rmtree(WORK["dir"], ignore_errors=True)
     print(f"\nchip_smoke: all phases ok in "
           f"{time.perf_counter() - t_start:.1f} s")
+    print("phase seconds " + json.dumps(seconds))
     if picked is not None:
         return 0  # a short check: no record, no result line
 
@@ -3094,6 +3421,7 @@ def main(argv) -> int:
     sp_pp = results["sequence and pipeline parallelism, dry run, GAN"]
     two12 = sp_pp["two_ranks"]
     stream = results["SMMNIST stream, config generator"]
+    reports = results["report tools"]
     replaces = {"oproj": "npvp_tpu/kernels/temporal_attention.py:136",
                 "attn": "npvp_tpu/kernels/temporal_attention.py:127"}
     run_of = {"oproj": "kernel_oproj", "attn": "kernel_attn"}
@@ -3159,6 +3487,17 @@ def main(argv) -> int:
                 "gan_eval_step": sp_pp["gan"]["eval_launches"][v]},
             "launches_phase13": {
                 "smmnist_stream_eval_steps": stream["eval"]["launches"][v]},
+            "launches_phase14": {
+                "evaluate_call_npvp_d":
+                    reports["per_call"]["quality_D"][0][v],
+                "evaluate_call_npvp_s_best_of_2":
+                    reports["per_call"]["quality_S"][0][v],
+                "evaluate_call_pallas_arm":
+                    reports["per_call"]["fidelity"][2][v],
+                "frontier_forward": {
+                    k: r[v] for k, r in reports["frontier_launches"].items()},
+                "window_drift_2_batches":
+                    reports["launches"]["window_drift"][v]},
             "sp_shards": ({k: {key: r[key] for key in
                                ("ms", "plain_ms", "full_ms", "max_abs")}
                            for k, r in sp_pp["sp_kernel"].items()}

@@ -1,1 +1,3 @@
-"""The experiment config matrix of the port (``generate.py``)."""
+"""The experiment config matrix of the port: the 23 experiment YAMLs
+(``config_<dataset>_<variant>.yaml``, equal to the JAX package's) and
+their generator (``generate.py``)."""

@@ -1,14 +1,13 @@
 """The experiment config matrix (port of ``npvp_tpu/configs/generate.py``).
 
-The same 21 experiment YAMLs as the JAX package ships in
+The same 23 experiment YAMLs as the JAX package ships in
 ``npvp_tpu/configs/``, built from one table of per-dataset settings and
-per-variant overlays. The port reads those YAMLs unchanged
-(``core/config.py``); this module writes the matrix elsewhere, for a
-changed table or a new dataset:
+per-variant overlays. The port keeps its own copy of them beside this
+module (``npvp_tpu_torch/configs/config_*.yaml``, byte-equal to the
+JAX package's); this module writes the matrix for a changed table or a
+new dataset:
 
     python -m npvp_tpu_torch.configs.generate --out_dir <dir>
-
-It never writes into ``npvp_tpu/configs/``.
 """
 
 from __future__ import annotations

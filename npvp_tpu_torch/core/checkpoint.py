@@ -76,12 +76,15 @@ class CheckpointManager:
     def best_step(self) -> Optional[int]:
         return min(self._index, key=self._rank, default=None)
 
-    def load(self, step: Optional[int] = None, map_location="cpu") -> dict:
-        """The saved state dict of ``step`` (the latest by default)."""
+    def load(self, step: Optional[int] = None, map_location="cpu",
+             mmap: bool = False) -> dict:
+        """The saved state dict of ``step`` (the latest by default);
+        ``mmap`` maps the file and reads a tensor when it is used."""
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.directory}")
-        return torch.load(self.path(step), map_location=map_location)
+        return torch.load(self.path(step), map_location=map_location,
+                          mmap=mmap)
 
     def restore(self, state, step: Optional[int] = None):
         """Load ``step`` (the latest by default) into ``state`` in place and
@@ -92,8 +95,11 @@ class CheckpointManager:
 
 def load_model_state(path, map_location="cpu") -> dict:
     """A model's state dict from a checkpoint directory (its latest step)
-    or from one checkpoint file."""
+    or from one checkpoint file; the file is mapped, so the optimizer's
+    state beside the model is never read."""
     path = Path(path)
-    saved = (CheckpointManager(path).load(map_location=map_location)
-             if path.is_dir() else torch.load(path, map_location=map_location))
+    saved = (CheckpointManager(path).load(map_location=map_location,
+                                          mmap=True)
+             if path.is_dir() else torch.load(path, map_location=map_location,
+                                              mmap=True))
     return saved["model"]

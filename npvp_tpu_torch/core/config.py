@@ -3,7 +3,8 @@
 A copy of the dataclass schema and validation of ``npvp_tpu/core/config.py``
 (that package's ``core/__init__`` imports jax, so the port keeps its own):
 the same groups ``Env``, ``Dataset``, ``AE``, ``Predictor``, so every YAML in
-``npvp_tpu/configs/`` loads unchanged, and the same ``Group.key=value``
+``npvp_tpu/configs/`` loads unchanged (the port keeps equal copies in
+``npvp_tpu_torch/configs/``), and the same ``Group.key=value``
 overrides. Fields that only the JAX build reads (mesh, profiling) are kept
 so those YAMLs still validate; ``Env.platform`` picks the port's torch
 device.

@@ -98,7 +98,8 @@ def evaluate(cfg: Config, fvd_i3d_ckpt: Optional[str] = None,
              baseline: bool = False, gif_dir: Optional[str] = None,
              gif_sequences: int = 4, ae_ceiling: bool = False,
              dtype=torch.float32, exec_mode: Optional[str] = None,
-             device="cuda", sprites=None) -> dict:
+             device="cuda", sprites=None,
+             vp: Optional[VideoPredictor] = None) -> dict:
     """The per-timestep metrics of ``task`` over the test loader, from the
     checkpoints that ``Predictor.resume_AE_ckpt`` and
     ``Predictor.ckpt_save_dir`` name (or random weights).
@@ -110,16 +111,19 @@ def evaluate(cfg: Config, fvd_i3d_ckpt: Optional[str] = None,
     PSNR-best draw) of the first ``gif_sequences`` sequences of the first
     batch. ``dtype``/``exec_mode`` default to fp32 and the plain path;
     bf16 and "pallas" measure the serving numerics on the same protocol.
-    ``sprites`` optionally maps "test" to an SMMNIST sprite bank."""
+    ``sprites`` optionally maps "test" to an SMMNIST sprite bank. ``vp``
+    serves a predictor already built for ``cfg`` (a tool evaluating one
+    checkpoint several times); ``random_init``, ``dtype``, ``exec_mode``
+    and ``device`` are then its own."""
     if task not in TASKS:
         raise ValueError(f"unknown task {task!r}; expected one of {TASKS}")
     dm = DataModule(cfg, sprites)
     d, p = cfg.Dataset, cfg.Predictor
-    if random_init:
+    if vp is None and random_init:
         vp = VideoPredictor.from_random_init(cfg, dtype,
                                              exec_mode=exec_mode,
                                              device=device)
-    else:
+    elif vp is None:
         vp = VideoPredictor.from_checkpoints(
             cfg, p.resume_AE_ckpt, p.ckpt_save_dir, dtype=dtype,
             exec_mode=exec_mode, device=device)

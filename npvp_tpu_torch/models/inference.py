@@ -84,8 +84,17 @@ class VideoPredictor:
 
     # -- construction --------------------------------------------------------
     @classmethod
-    def _build(cls, cfg, dtype, exec_mode):
-        return build_ae(cfg, dtype), build_predictor(cfg, dtype, exec_mode)
+    def _build(cls, cfg, dtype, exec_mode, empty: bool = False):
+        """The AE and the predictor; ``empty`` leaves their storage
+        uninitialised (built on the meta device), for a caller that loads
+        every parameter and buffer (the loaders raise on a missing one)."""
+        if not empty:
+            return build_ae(cfg, dtype), build_predictor(cfg, dtype,
+                                                         exec_mode)
+        with torch.device("meta"):
+            ae, predictor = (build_ae(cfg, dtype),
+                             build_predictor(cfg, dtype, exec_mode))
+        return ae.to_empty(device="cpu"), predictor.to_empty(device="cpu")
 
     @classmethod
     def from_random_init(cls, cfg: Config, dtype=torch.bfloat16,
@@ -101,7 +110,7 @@ class VideoPredictor:
                        dtype=torch.bfloat16, exec_mode: Optional[str] = None,
                        device="cuda") -> "VideoPredictor":
         """From flax variable trees (nested dicts of numpy arrays)."""
-        ae, predictor = cls._build(cfg, dtype, exec_mode)
+        ae, predictor = cls._build(cfg, dtype, exec_mode, empty=True)
         load_flax(ae, ae_vars)
         load_flax(predictor, pred_vars)
         return cls(cfg, ae, predictor, device)
@@ -119,7 +128,7 @@ class VideoPredictor:
         if str(predictor_ckpt_dir).endswith(".npz"):
             return cls.from_weights(cfg, predictor_ckpt_dir, dtype,
                                     exec_mode, device)
-        ae, predictor = cls._build(cfg, dtype, exec_mode)
+        ae, predictor = cls._build(cfg, dtype, exec_mode, empty=True)
         load_trained(ae, ae_ckpt_dir, "ae")
         load_trained(predictor, predictor_ckpt_dir, "pred")
         return cls(cfg, ae, predictor, device)
@@ -129,7 +138,10 @@ class VideoPredictor:
                      exec_mode: Optional[str] = None,
                      device="cuda") -> "VideoPredictor":
         """From a weights archive written by
-        ``npvp_tpu/tools/export_weights.py``."""
+        ``npvp_tpu/tools/export_weights.py`` (or ``tools/weights.py``). A
+        config of smaller depth (fewer ``Predictor.transformer_layers`` or
+        ``evt_former_num_layers``) serves a full archive through its
+        leading blocks, as the JAX package does."""
         ae_vars, pred_vars, _ = load_weights(npz_path)
         return cls.from_variables(cfg, ae_vars, pred_vars, dtype, exec_mode,
                                   device)

@@ -16,7 +16,7 @@ Serve with::
 Example::
 
     python -m npvp_tpu_torch.tools.export_serving \\
-        --config_path npvp_tpu/configs/config_SMMNIST_Unified_NPVP-S.yaml \\
+        --config_path npvp_tpu_torch/configs/config_SMMNIST_Unified_NPVP-S.yaml \\
         --task VFP --batch_size 8 --out bundles/smmnist_vfp
 """
 

@@ -28,6 +28,7 @@ the archive unchanged.
 from __future__ import annotations
 
 import json
+import re
 from pathlib import Path
 from typing import Dict, Iterable, Optional, Tuple
 
@@ -45,6 +46,9 @@ from npvp_tpu_torch.nn.vidhrformer import MlpDWBN
 
 SEP = "/"
 META_KEY = "__meta__"
+# a block of a VidHRFormer stack in an archive: a config of smaller depth
+# serves the archive without it, as flax ignores the unused parameters
+_STACK_LAYER = re.compile(r"^(evt_former_stack|decoder)/layer_(\d+)/")
 _F16_MAX = 60000.0  # stay clear of float16 inf (65504), as the JAX writer
 
 
@@ -124,13 +128,27 @@ def _flat_keys(tree: dict, prefix: str = "") -> list:
     return out
 
 
+def _beyond_depth(module: nn.Module, key: str) -> bool:
+    """Whether flax leaf ``key`` lies in a trailing block of a VidHRFormer
+    stack that ``module`` holds at a smaller depth: ``evt_former_stack/
+    layer_{k}`` or ``decoder/layer_{k}`` with k at or past the stack's
+    ``num_layers``."""
+    m = _STACK_LAYER.match(key)
+    if m is None:
+        return False
+    depth = getattr(getattr(module, m.group(1), None), "num_layers", None)
+    return isinstance(depth, int) and int(m.group(2)) >= depth
+
+
 def load_flax(module: nn.Module, variables: dict,
               ignore: Tuple[str, ...] = ()) -> nn.Module:
     """Copy flax ``variables`` into ``module`` in place.
 
     Raises if a parameter or buffer of ``module`` finds no flax value, if a
     shape differs, or if a flax leaf is left over outside the module paths
-    in ``ignore`` (subtrees this module does not hold)."""
+    in ``ignore`` (subtrees this module does not hold) and outside the
+    trailing blocks of a stack that ``module`` holds at a smaller depth
+    (a depth-cut config serving a full archive, as flax serves it)."""
     params = variables.get("params", {})
     stats = variables.get("batch_stats", {})
     own = module.state_dict()
@@ -161,7 +179,8 @@ def load_flax(module: nn.Module, variables: dict,
         raise KeyError(f"no flax value for {sorted(missing)[:5]}")
     module.load_state_dict(own)
     leftover = [k for k in _flat_keys(params) + _flat_keys(stats)
-                if not k.startswith(ignore) and k not in used]
+                if not k.startswith(ignore) and k not in used
+                and not _beyond_depth(module, k)]
     if leftover:
         raise KeyError(f"flax leaves not used by the module: {leftover[:5]}")
     return module

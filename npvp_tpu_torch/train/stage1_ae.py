@@ -2,7 +2,7 @@
 (port of ``npvp_tpu/train/stage1_ae.py``).
 
     python -m npvp_tpu_torch.train.stage1_ae \\
-        --config_path npvp_tpu/configs/config_SMMNIST_Autoencoder.yaml \\
+        --config_path npvp_tpu_torch/configs/config_SMMNIST_Autoencoder.yaml \\
         --smoke [--override Env.platform=cpu ...]
 
 A step reconstructs ``concat(past, future)`` with the AE in training mode

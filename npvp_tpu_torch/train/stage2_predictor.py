@@ -2,7 +2,7 @@
 (port of ``npvp_tpu/train/stage2_predictor.py``).
 
     python -m npvp_tpu_torch.train.stage2_predictor \\
-        --config_path npvp_tpu/configs/config_SMMNIST_Unified_NPVP-S.yaml \\
+        --config_path npvp_tpu_torch/configs/config_SMMNIST_Unified_NPVP-S.yaml \\
         --smoke [--override Env.platform=cpu ...]
 
 Each step runs the frozen AE's encode, the predictor's forward and backward
