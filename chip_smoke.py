@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--phases 1,2]
 
 Builds the temporal-attention kernel from ``npvp_tpu_torch/kernels/csrc``
-with nvcc, then runs fourteen phases (all of them by default; ``--phases``
+with nvcc, then runs fifteen phases (all of them by default; ``--phases``
 picks some, for a short check), each printing its own lines:
 
 1. environment: the card's name and power limit, torch, CUDA, nvcc, the
@@ -159,6 +159,18 @@ picks some, for a short check), each printing its own lines:
    tool and in each ``evaluate`` call it makes (the attention-only kernel
    none); every number the tools write is finite; each tool's wall
    seconds are printed.
+15. checkpoints on the card (``core/checkpoint.py``): phase 6's
+   configuration, 3 epochs of 2 train and 2 eval steps with a save every
+   epoch, once with the write on the training thread (the synchronous
+   comparison arm, kept only here) and once through the asynchronous
+   ``CheckpointManager``, under deterministic algorithms: each arm's
+   stall in ``save`` on the training thread, the background write's ms,
+   the MiB a file and the epochs' wall seconds; the asynchronous stall
+   below the synchronous one; the two arms' files equal tensor for tensor,
+   bit for bit; the last asynchronous file restored into a fresh state
+   gives the eval loss of the state that wrote it; 40 launches an eval
+   step; a background write into a path that is a file raises at
+   ``wait()``.
 
 The phases run in a child process; this one exits with its code once every
 process the run started has ended (see ``supervise``). Any failure exits
@@ -3334,12 +3346,217 @@ def phase_reports(torch, ta):
     return result
 
 
+CKPT_EPOCHS, CKPT_STEPS = 3, 2
+
+
+def _same_tree(a, b, where=""):
+    """The first place where two loaded checkpoints differ (tensors bit
+    for bit, with their dtypes and shapes), or None."""
+    if isinstance(a, dict) and isinstance(b, dict):
+        if list(a) != list(b):
+            return f"{where}: keys {list(a)[:4]}... vs {list(b)[:4]}..."
+        return next((d for k in a if (d := _same_tree(
+            a[k], b[k], f"{where}/{k}")) is not None), None)
+    if isinstance(a, (list, tuple)) and isinstance(b, (list, tuple)):
+        if len(a) != len(b):
+            return f"{where}: {len(a)} vs {len(b)} items"
+        return next((d for i, (x, y) in enumerate(zip(a, b)) if (
+            d := _same_tree(x, y, f"{where}/{i}")) is not None), None)
+    if hasattr(a, "dtype") and hasattr(b, "dtype") and hasattr(a, "shape"):
+        import torch
+
+        if a.dtype != b.dtype or a.shape != b.shape:
+            return f"{where}: {a.dtype}{tuple(a.shape)} vs {b.dtype}" \
+                   f"{tuple(b.shape)}"
+        if not torch.equal(a, b):
+            d = (a.double() - b.double()).abs().max().item()
+            return f"{where}: values differ, max|d| {d:.3e}"
+        return None
+    return None if a == b else f"{where}: {a!r} vs {b!r}"
+
+
+def phase_checkpoints(torch, ta):
+    """Checkpoints on the card: phase 6's configuration trained a few
+    short epochs with a save every epoch, once with the write on the
+    training thread (the synchronous comparison arm) and once through the
+    asynchronous ``CheckpointManager``."""
+    import numpy as np
+
+    from npvp_tpu_torch.core.checkpoint import CheckpointManager
+    from npvp_tpu_torch.core.config import load_config
+    from npvp_tpu_torch.data.loader import DataModule
+    from npvp_tpu_torch.models.predictor import build_predictor
+    from npvp_tpu_torch.nn.layers import Rng
+    from npvp_tpu_torch.train import stage2_predictor as s2
+
+    class SyncWrite(CheckpointManager):
+        """The synchronous comparison arm: the card's tensors saved while
+        the training thread waits."""
+
+        def _to_host(self, tree):
+            return tree
+
+        def save(self, step, state, metrics=None):
+            t0 = time.perf_counter()
+            started = super().save(step, state, metrics)
+            self.wait()
+            if started:
+                self.history[-1]["save_ms"] = (time.perf_counter() - t0) * 1e3
+            return started
+
+    tmp = Path(WORK["dir"]) / "checkpoints"
+    tmp.mkdir(parents=True, exist_ok=True)
+    yaml = CONFIGS / "config_SMMNIST_Unified_NPVP-S.yaml"
+
+    def config(arm):
+        return load_config(yaml, [
+            "Predictor.exec_mode=pallas", f"Predictor.epochs={CKPT_EPOCHS}",
+            "Predictor.ckpt_per_epochs=1",
+            f"Predictor.ckpt_save_dir={tmp}/{arm}/ckpt",
+            f"Predictor.tensorboard_save_dir={tmp}/{arm}/log",
+            f"Dataset.dev_set_size={8 * CKPT_STEPS}",
+            "Env.visual_callback=false"])
+
+    t0 = time.perf_counter()
+    ae_path = str(s2.write_random_ae(config("sync"), tmp))
+    print(f"random AE checkpoint written ({time.perf_counter() - t0:.1f} s)")
+    # the two arms must train alike for their files to be compared bit for
+    # bit; cuDNN's and cuBLAS's nondeterministic algorithms would part them
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    arms, made = {}, []
+    try:
+        for arm, cls in (("sync", SyncWrite), ("async", CheckpointManager)):
+            t_arm = time.perf_counter()
+            cfg = config(arm)
+            cfg.Predictor.resume_AE_ckpt = ae_path
+            marks, launches = [], []
+            clock = [0]
+
+            def on_step(kind, index, metrics):
+                torch.cuda.synchronize()
+                count = sum(ta.LAUNCHES.values())
+                if kind == "eval":
+                    launches.append(count - clock[0])
+                    if index == CKPT_STEPS - 1:  # the epoch's last step
+                        marks.append(time.perf_counter())
+                check(np.isfinite(float(metrics[
+                    "loss" if kind == "train" else "loss_val"])),
+                    f"{arm}: a {kind} loss is not finite")
+                clock[0] = sum(ta.LAUNCHES.values())
+
+            def make(*args, **kwargs):
+                made.append(cls(*args, **kwargs))
+                return made[-1]
+
+            s2.CheckpointManager = make
+            reset_launches(ta)
+            t0 = time.perf_counter()
+            try:
+                state = s2.train(cfg, on_step=on_step)
+            finally:
+                s2.CheckpointManager = CheckpointManager
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            total = dict(ta.LAUNCHES)
+            hist = made[-1].history
+            check(len(hist) == CKPT_EPOCHS, f"{arm}: {len(hist)} saves")
+            check(all(n == 40 for n in launches),
+                  f"{arm}: eval steps launched {launches}, not 40")
+            check(total["oproj"] == 40 * len(launches)
+                  and total["attn"] == 0, f"{arm}: launches {total}")
+            arms[arm] = {
+                "save_ms": [h["save_ms"] for h in hist],
+                "write_ms": [h["write_ms"] for h in hist],
+                "mib": [h["bytes"] / 2 ** 20 for h in hist],
+                "epoch_s": [b - a for a, b in zip(marks, marks[1:])],
+                "train_s": wall, "eval_launches": launches,
+                "steps": [h["step"] for h in hist]}
+            if arm == "async":
+                last = made[-1].latest_step()
+                written = state
+            else:
+                del state
+            torch.cuda.empty_cache()
+            arms[arm]["arm_s"] = time.perf_counter() - t_arm
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for arm, r in arms.items():
+        print(f"{arm:5s}: save stall {[round(x, 1) for x in r['save_ms']]} "
+              f"ms on the training thread, write "
+              f"{[round(x, 1) for x in r['write_ms']]} ms, "
+              f"{r['mib'][0]:.1f} MiB a file, epochs "
+              f"{[round(x, 2) for x in r['epoch_s']]} s after the first, "
+              f"{r['train_s']:.1f} s in train() of {r['arm_s']:.1f} s in "
+              f"the arm, eval launches "
+              f"{r['eval_launches']}")
+    sync, asyn = arms["sync"], arms["async"]
+    check(sync["steps"] == asyn["steps"], "the arms saved other steps")
+    check(statistics.median(asyn["save_ms"])
+          < statistics.median(sync["save_ms"]),
+          "the asynchronous save stalls the training thread no less")
+
+    # the two arms' files, tensor for tensor
+    t0 = time.perf_counter()
+    files = {arm: Path(f"{tmp}/{arm}/ckpt") for arm in arms}
+    for step in sync["steps"]:
+        name = f"step_{step:08d}.pt"
+        got, want = (torch.load(files[arm] / name, map_location="cpu",
+                                mmap=True) for arm in ("async", "sync"))
+        diff = _same_tree(got, want)
+        check(diff is None, f"{name}: the arms' files differ at {diff}")
+    print(f"files of steps {sync['steps']}: the arms' are equal tensor for "
+          f"tensor, bit for bit ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+
+    # the last asynchronous file restored into a fresh state
+    cfg = config("async")
+    cfg.Predictor.resume_AE_ckpt = ae_path
+    dtype = s2.compute_dtype(cfg)
+    dev = next(written.model.parameters()).device
+    saved = dict(ta.LAUNCHES)
+    steps = s2.make_steps(cfg, s2.load_frozen_ae(cfg, dtype, dev),
+                          "rand_context", dev)
+    batch = steps.place(next(iter(DataModule(cfg).val_loader(
+        "rand_context"))))
+    want = float(steps.eval(written, batch, Rng(15))["loss_val"])
+    fresh = s2.init_predictor_state(
+        cfg, build_predictor(cfg, dtype).to(dev), CKPT_STEPS)
+    CheckpointManager(files["async"]).restore(fresh, last)
+    got = float(steps.eval(fresh, batch, Rng(15))["loss_val"])
+    print(f"step {last} restored into a fresh state: eval loss {got!r} vs "
+          f"{want!r} from the state that wrote it "
+          f"({time.perf_counter() - t0:.1f} s)")
+    check(want > 0 and fresh.step == last and got == want,
+          "the restored state gives another eval loss (or none to compare)")
+    ta.LAUNCHES.update(saved)  # comparison launches are not the path's
+    del written, fresh
+
+    # a write that fails in the background surfaces at wait()
+    broken = CheckpointManager(tmp / "broken")
+    shutil.rmtree(broken.directory)
+    broken.directory.write_text("a file where the directory was")
+    holder = type("Holder", (), {"state_dict": lambda self: {
+        "w": torch.ones(4, device=dev)}})()
+    check(broken.save(1, holder), "the broken save did not start")
+    try:
+        broken.wait()
+        raised = None
+    except Exception as e:  # whatever the write raised, it surfaced
+        raised = e
+    print(f"a write into a path that is a file: wait() raised "
+          f"{type(raised).__name__}: {raised}")
+    check(raised is not None, "the failed background write did not surface")
+    broken.close()
+    return arms
+
+
 def main(argv) -> int:
     import argparse
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases", help="comma-separated phase numbers "
-                        "(1-14) for a short check; the default runs all and "
+                        "(1-15) for a short check; the default runs all and "
                         "prints the record")
     args = parser.parse_args(argv)
     picked = (None if args.phases is None
@@ -3384,7 +3601,8 @@ def main(argv) -> int:
               ("sequence and pipeline parallelism, dry run, GAN",
                phase_sequence_pipeline),
               ("SMMNIST stream, config generator", phase_smmnist_stream),
-              ("report tools", phase_reports)]
+              ("report tools", phase_reports),
+              ("checkpoints", phase_checkpoints)]
     if picked is not None:
         phases = [ph for i, ph in enumerate(phases, 1) if i in picked]
     WORK["dir"] = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -3422,6 +3640,7 @@ def main(argv) -> int:
     two12 = sp_pp["two_ranks"]
     stream = results["SMMNIST stream, config generator"]
     reports = results["report tools"]
+    ckpts = results["checkpoints"]
     replaces = {"oproj": "npvp_tpu/kernels/temporal_attention.py:136",
                 "attn": "npvp_tpu/kernels/temporal_attention.py:127"}
     run_of = {"oproj": "kernel_oproj", "attn": "kernel_attn"}
@@ -3498,6 +3717,10 @@ def main(argv) -> int:
                     k: r[v] for k, r in reports["frontier_launches"].items()},
                 "window_drift_2_batches":
                     reports["launches"]["window_drift"][v]},
+            "launches_phase15": {
+                f"eval_step_{arm}_save": (r["eval_launches"][0]
+                                          if v == "oproj" else 0)
+                for arm, r in ckpts.items()},
             "sp_shards": ({k: {key: r[key] for key in
                                ("ms", "plain_ms", "full_ms", "max_abs")}
                            for k, r in sp_pp["sp_kernel"].items()}

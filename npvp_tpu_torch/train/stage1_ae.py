@@ -177,12 +177,15 @@ def train(cfg: Config, max_steps: Optional[int] = None, sprites=None,
                         renorm=dm.renorm)
             if max_steps is not None and state.step >= max_steps:
                 break
+        ckpt.wait()  # the last checkpoint whole before returning
     finally:
         profiler.stop_profiler()
         if logger is not None:
             logger.close()
         train_loader.close()
         val_loader.close()
+        # a run that ends in an exception still leaves whole files
+        ckpt.close()
     return state
 
 

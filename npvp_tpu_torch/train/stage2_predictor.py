@@ -403,12 +403,15 @@ def train(cfg: Config, max_steps: Optional[int] = None, sprites=None,
                     traceback.print_exc(file=sys.stdout)
             if stopped:
                 break
+        ckpt.wait()  # the last checkpoint whole before returning
     finally:
         profiler.stop_profiler()
         if logger is not None:
             logger.close()
         train_loader.close()
         val_loader.close()
+        # a run that ends in an exception still leaves whole files
+        ckpt.close()
     return state
 
 

@@ -333,6 +333,37 @@ def stage1_scenario(cfg, ae_sd, batches, mesh_shape=None, fsdp=False):
 PARAM_ATOL = 0.02 * 1e-3
 
 T = 8  # tiny_config's max_T
+def checkpoint_scenario(ckpt_dir, mesh_shape=None):
+    """Two Adam steps of a small MLP, fully sharded over the data axis, each
+    saved through ``CheckpointManager`` (metric 0.5, then 0.7; the best is
+    the first) into this rank's own directory, rank 0 the only writer: →
+    the state gathered into the one-process layout after the second step,
+    and every rank's (latest, best) steps."""
+    from npvp_tpu_torch.core.train_state import TrainState
+
+    mesh, rank = _mesh(mesh_shape), torch.distributed.get_rank()
+    torch.manual_seed(0)
+    model = torch.nn.Sequential(torch.nn.Linear(8, 16),
+                                torch.nn.Linear(16, 4))
+    state = TrainState(model, torch.optim.Adam(model.parameters()),
+                       lambda step: 1e-2)
+    state = parallelize_state(state, mesh, True, tensor_parallel=False)
+    mngr = CheckpointManager(Path(ckpt_dir) / f"rank{rank}",
+                             monitor="loss", writer=rank == 0)
+    x = torch.linspace(-1, 1, 16).reshape(2, 8) + rank
+    for loss in (0.5, 0.7):
+        state.model(x).square().mean().backward()
+        state.apply_gradients()
+        assert mngr.save(state.step, state, {"loss": loss})
+    full = state.state_dict()  # a collective, as in save
+    mngr.close()
+    steps = torch.tensor([mngr.latest_step(), mngr.best_step()])
+    every = [torch.empty_like(steps)
+             for _ in range(torch.distributed.get_world_size())]
+    torch.distributed.all_gather(every, steps)
+    return {"state": full, "steps": torch.stack(every)}
+
+
 OBS = [np.array([1, 0, 1, 1, 0, 0, 1, 0], bool),
        np.array([0, 1, 1, 0, 0, 1, 0, 0], bool)]
 

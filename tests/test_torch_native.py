@@ -6,8 +6,9 @@ build is reported once and leaves the library unavailable.
 
 The port's library is built here with ``g++``; the tests that need it skip
 only where it cannot be built, as ``tests/test_native.py`` does for the
-JAX package's. Whether the JAX package's library loaded is read in the
-test's own process (several test processes may race on its ``make``)."""
+JAX package's. The JAX package's library is loaded in the test's own
+process through ``tests/_jax_native.py``, which builds it safely where
+the test processes' racing ``make`` left this one without it."""
 
 import subprocess
 import sys
@@ -15,6 +16,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+from _jax_native import jax_native_available
 
 from npvp_tpu_torch.data import native_bindings as nb
 from npvp_tpu_torch.data.transforms import CenterCrop, Normalize, Resize
@@ -64,9 +66,9 @@ def test_stream_equals_numpy_twin(port_lib, deterministic, T, S, digits, D):
 def test_stream_equals_jax(port_lib, deterministic, T, S, digits, D):
     from npvp_tpu.data import native_bindings as jnb
 
-    if not jnb.native_available():
-        pytest.skip("the JAX package's C++ data library is unavailable in "
-                    "this process")
+    if not jax_native_available():
+        pytest.skip("the JAX package's C++ data library cannot be built "
+                    "here")
     sprites = _sprites(size=D, seed=3)
     seeds = np.arange(16, dtype=np.uint64) * 2
     np.testing.assert_array_equal(
@@ -115,9 +117,9 @@ def test_transform_matches_port_transforms(port_lib, crop, out):
 def test_transform_equals_jax(port_lib):
     from npvp_tpu.data import native_bindings as jnb
 
-    if not jnb.native_available():
-        pytest.skip("the JAX package's C++ data library is unavailable in "
-                    "this process")
+    if not jax_native_available():
+        pytest.skip("the JAX package's C++ data library cannot be built "
+                    "here")
     clips = np.random.default_rng(1).random((2, 3, 30, 50, 3), np.float32)
     kw = dict(crop=(30, 30), out_size=(17, 17), hflips=np.array([1, 0]),
               vflips=np.array([1, 1]), mean=(0.1, 0.2, 0.3),
@@ -167,3 +169,35 @@ def test_failed_build_is_reported_once(tmp_path, monkeypatch):
                                   [0], [0], 0.0, 1.0) is None
     assert len(caught) == 1 and "/bin/false failed" in str(caught[0].message)
     assert list(tmp_path.iterdir()) == []  # the temporary file is removed
+
+
+def test_jax_library_recovers_from_a_lost_make_race(tmp_path, monkeypatch):
+    """A process whose first load of the JAX package's library failed (a
+    partial file, as a racing ``make`` leaves one) gets it through
+    ``tests/_jax_native.py``: rebuilt into place through a temporary file,
+    loaded, and nothing else left in the directory."""
+    import shutil
+
+    from npvp_tpu.data import native_bindings as jnb
+
+    native = Path(jnb.__file__).parent / "native"
+    for name in ("Makefile", "npvp_data.cpp"):
+        shutil.copy(native / name, tmp_path / name)
+    lib = tmp_path / "libnpvp_data.so"
+    lib.write_bytes(b"\x7fELF" + bytes(60))  # a build cut short
+    monkeypatch.setattr(jnb, "_NATIVE_DIR", tmp_path)
+    monkeypatch.setattr(jnb, "_LIB_PATH", lib)
+    monkeypatch.setattr(jnb, "_lib", None)
+    monkeypatch.setattr(jnb, "_tried", False)
+    assert not jnb.native_available()  # the lost race
+    if shutil.which("g++") is None:
+        pytest.skip("no g++")
+    assert jax_native_available()
+    assert jnb.native_available() and jnb._lib._name == str(lib)
+    assert sorted(f.name for f in tmp_path.iterdir()) == [
+        "Makefile", "libnpvp_data.so", "npvp_data.cpp"]
+    sprites = _sprites(size=16, seed=4)
+    seeds = np.arange(4, dtype=np.uint64)
+    np.testing.assert_array_equal(
+        jnb.synth_moving_sprites_batch(sprites, 6, 32, 2, False, seeds),
+        nb.synth_moving_sprites_reference(sprites, 6, 32, 2, False, seeds))

@@ -13,6 +13,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+from _jax_native import jax_native_available
 from make_torch_glyphs import FIXTURE, SEEDS, render
 
 from npvp_tpu_torch.data import loader as tload
@@ -41,9 +42,7 @@ def jax_banks():
 def same_path(monkeypatch):
     """Put the port on the JAX package's path in this process: the batch
     stream where its library loaded, clip by clip where not."""
-    from npvp_tpu.data import native_bindings as jnb
-
-    streams = jnb.native_available()
+    streams = jax_native_available()
     if streams and not tnb.native_available():
         pytest.fail("the JAX package's C++ library loaded, the port's not")
     monkeypatch.setattr(tnb, "native_available", lambda: streams)

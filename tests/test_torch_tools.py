@@ -245,6 +245,7 @@ def test_export_weights_cli(tmp_path, capsys):
             build_predictor(cfg), step), 1)
         state.step = step
         mngr.save(step, state, {"loss_val": loss})
+    mngr.close()  # the files are written in the background
     cfg.save(tmp_path / "cfg.json")
     main(["--config_path", str(tmp_path / "cfg.json"), "--out",
           str(tmp_path / "out.npz"), "--ae_ckpt", str(tmp_path / "ae.npz"),

@@ -608,6 +608,7 @@ def test_checkpoint_retention_keeps_the_best(tmp_path):
     mngr = CheckpointManager(tmp_path, max_to_keep=2, monitor="loss_val")
     for step, loss in ((1, 3.0), (2, 1.0), (3, 2.0), (4, 0.5)):
         mngr.save(step, Holder(), {"loss_val": loss})
+    mngr.wait()  # the files are written in the background
     assert sorted(p.name for p in tmp_path.glob("*.pt")) == [
         "step_00000002.pt", "step_00000004.pt"]
     again = CheckpointManager(tmp_path, max_to_keep=2, monitor="loss_val")
