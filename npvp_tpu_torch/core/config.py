@@ -36,7 +36,9 @@ class EnvConfig:
     mesh_shape: tuple = (("data", -1),)  # -1 = all devices on that axis
     compute_dtype: str = "bfloat16"  # dtype for matmul/conv compute
     param_dtype: str = "float32"
-    profile_dir: Optional[str] = None  # jax.profiler trace output
+    # train steps 10-14 as a torch.profiler Chrome trace, with the program's
+    # spans (train.common.StepProfiler)
+    profile_dir: Optional[str] = None
     debug_nans: bool = False  # survey §5.2: jax_debug_nans sanitizer mode
     # shard activations' spatial H axis over the model mesh axis (Megatron-SP
     # layout; see core.mesh.sequence_parallel). Needs mesh_shape model > 1.

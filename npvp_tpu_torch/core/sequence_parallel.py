@@ -41,9 +41,10 @@ parallelism already splits the heads and the FFN width over:
 Every collective is a ``torch.autograd.Function``: the all-gather's
 backward takes this rank's rows of the (whole, equal on every rank)
 gradient, the reduce-scatter's backward is an all-gather. Each runs in a
-``torch.profiler`` span named ``sequence_parallel.<kind>`` (``gather_h``,
-``split_h``, ``reduce_scatter_h``, ``halo``, ``norm_stats``), so that a
-profile attributes their time.
+``core.tracing`` span named ``npvp.sequence_parallel.<kind>``
+(``gather_h``, ``split_h``, ``reduce_scatter_h``, ``halo``,
+``norm_stats``), so that the spans, and a profile taken with tracing on,
+attribute their time; with tracing off a span costs nothing but its call.
 """
 
 from __future__ import annotations
@@ -53,8 +54,8 @@ from typing import Optional
 
 import torch
 import torch.distributed as dist
-from torch.profiler import record_function
 
+from npvp_tpu_torch.core import tracing
 from npvp_tpu_torch.core.distributed import (MODEL_AXIS, AxisShard, axis,
                                              copy_to_model)
 
@@ -99,8 +100,8 @@ def _rows(x: torch.Tensor, shard: AxisShard, dim: int = H_DIM):
 
 
 def span(kind: str):
-    """The profiler span of one of this module's collectives."""
-    return record_function(f"sequence_parallel.{kind}")
+    """The span of one of this module's collectives."""
+    return tracing.span(f"npvp.sequence_parallel.{kind}")
 
 
 def _all_gather(x: torch.Tensor, shard: AxisShard,

@@ -19,6 +19,7 @@ from torch import nn
 from npvp_tpu_torch.core.distributed import unwrap
 from npvp_tpu_torch.core.optim import Schedule, clip_subtree_by_global_norm
 from npvp_tpu_torch.core.tensor_parallel import ParamShards
+from npvp_tpu_torch.core.tracing import span
 
 
 @dataclasses.dataclass
@@ -45,18 +46,21 @@ class TrainState:
         optax does), the optimizer step, ``step += 1``, and the gradients
         cleared. A parameter that got no gradient gets zeros, as JAX gives
         it, so weight decay and the moments move it alike."""
-        params = list(self.module.named_parameters())
-        for _, p in params:
-            if p.requires_grad and p.grad is None:
-                p.grad = torch.zeros_like(p)
-        if self.max_grad_norm is not None:
-            self.grad_norm = clip_subtree_by_global_norm(
-                params, self.max_grad_norm, self.clip_predicate, self.shards)
-        for group in self.optimizer.param_groups:
-            group["lr"] = self.schedule(self.step)
-        self.optimizer.step()
-        self.optimizer.zero_grad(set_to_none=True)
-        self.step += 1
+        with span("npvp.train.optimizer"):
+            params = list(self.module.named_parameters())
+            for _, p in params:
+                if p.requires_grad and p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            if self.max_grad_norm is not None:
+                with span("npvp.train.clip"):
+                    self.grad_norm = clip_subtree_by_global_norm(
+                        params, self.max_grad_norm, self.clip_predicate,
+                        self.shards)
+            for group in self.optimizer.param_groups:
+                group["lr"] = self.schedule(self.step)
+            self.optimizer.step()
+            self.optimizer.zero_grad(set_to_none=True)
+            self.step += 1
 
     def _param_names(self) -> list:
         """Parameter names by the optimizer's indices (the model's order)."""

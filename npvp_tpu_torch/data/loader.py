@@ -52,7 +52,9 @@ A failure in the producer reaches the consumer as ``RuntimeError("data
 producer failed at epoch …")`` after the batches that came before it; it
 is never swallowed. ``last_wait_ms`` is how long the consumer waited on
 the queue for the batch it was last given: near zero while the loader
-keeps ahead.
+keeps ahead. With ``core.tracing`` on, the producer thread records a
+``npvp.loader.produce`` span a batch and the consumer a
+``npvp.loader.wait`` span a wait.
 """
 
 from __future__ import annotations
@@ -67,6 +69,7 @@ from typing import Dict, Iterator, Optional, Sequence
 
 import numpy as np
 
+from npvp_tpu_torch.core.tracing import span
 from npvp_tpu_torch.data import datasets as D
 from npvp_tpu_torch.data.datasets import ConcatDataset, SubsetDataset
 from npvp_tpu_torch.data.smmnist import StochasticMovingMNIST
@@ -210,7 +213,9 @@ class BatchLoader:
                 for b in range(len(self)):
                     ids = idx[b * self.batch_size:(b + 1) * self.batch_size]
                     t0 = time.perf_counter()
-                    batch = self._make_batch(ids, batch_rng, self._workers())
+                    with span("npvp.loader.produce"):
+                        batch = self._make_batch(ids, batch_rng,
+                                                 self._workers())
                     if self._use_pool is None:
                         self._use_pool = ((time.perf_counter() - t0) * 1e3
                                           >= POOL_MIN_FETCH_MS)
@@ -227,7 +232,8 @@ class BatchLoader:
         try:
             while True:
                 t0 = time.perf_counter()
-                item = q.get()
+                with span("npvp.loader.wait"):
+                    item = q.get()
                 self.last_wait_ms = (time.perf_counter() - t0) * 1e3
                 if item is stop:
                     break

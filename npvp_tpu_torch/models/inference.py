@@ -43,6 +43,7 @@ from npvp_tpu_torch.core import distributed as D
 from npvp_tpu_torch.core.config import Config
 from npvp_tpu_torch.core.device import resolve_device
 from npvp_tpu_torch.core.tensor_parallel import shard_tensor_parallel
+from npvp_tpu_torch.core.tracing import span
 from npvp_tpu_torch.models.coords import coordinate_grid, spatial_index_lists
 from npvp_tpu_torch.models.predictor import NPPredictor, build_predictor
 from npvp_tpu_torch.nn.resnet_ae import FrameAutoEncoder, build_ae
@@ -214,8 +215,9 @@ class VideoPredictor:
         if observed_frames.shape[1] != len(to_list):
             raise ValueError(f"{observed_frames.shape[1]} frames observed at "
                              f"{len(to_list)} times")
-        return self._run(observed_frames, self._coords(to_list),
-                         self._coords(tp_list), eps, generator)
+        with span("npvp.serve.request"):
+            return self._run(observed_frames, self._coords(to_list),
+                             self._coords(tp_list), eps, generator)
 
     def freeze_task(self, to_list: Sequence[float],
                     tp_list: Sequence[float]):
@@ -229,7 +231,8 @@ class VideoPredictor:
             if observed_frames.shape[1] != n_obs:
                 raise ValueError(f"frozen task observes {n_obs} frames, got "
                                  f"{observed_frames.shape[1]}")
-            return self._run(observed_frames, oc, tc, eps, generator)
+            with span("npvp.serve.request"):
+                return self._run(observed_frames, oc, tc, eps, generator)
 
         return predict_frozen
 

@@ -25,6 +25,7 @@ from typing import NamedTuple, Optional
 import torch
 from torch import nn
 
+from npvp_tpu_torch.core.tracing import span
 from npvp_tpu_torch.nn.layers import Rng, TokenLayerNorm, fold
 from npvp_tpu_torch.nn.neural_process import (NRMLP, EventEncoder,
                                               pos_feat_fuse)
@@ -135,38 +136,44 @@ class NPPredictor(nn.Module):
         ``target_feats_gt`` (the target frames' features) feeds the
         posterior, which training decodes from. ``rng`` also feeds dropout
         and DropPath in training mode."""
-        op_beta, op_gamma = self.nrmlp(obs_coords)
-        pp_beta, pp_gamma = self.nrmlp(tgt_coords)
-        memory, coding = self.event_coding(observed_feats, op_beta, op_gamma,
-                                           obs_mask, fold(rng, "observe"))
-        N, To, H, W, _ = observed_feats.shape
-        TP = tgt_coords.shape[0] // (H * W)
-        self_allow = cross_allow = None
-        if tgt_mask is not None:
-            self_allow = tgt_mask.bool()[None, :].expand(TP, TP)
-        if obs_mask is not None:
-            cross_allow = obs_mask.bool()[None, :].expand(TP, To)
-        mu_o = logvar_o = mu_p = logvar_p = None
-        if self.stochastic:
-            z, mu_o, logvar_o = self._latent(self.evt_prior, coding,
-                                             eps_prior, sample_latent, rng,
-                                             "latent_prior")
-            if target_feats_gt is not None:
-                _, pcoding = self.event_coding(target_feats_gt, pp_beta,
-                                               pp_gamma, tgt_mask,
-                                               fold(rng, "predict"))
-                zp, mu_p, logvar_p = self._latent(
-                    self.evt_posterior, pcoding, eps_post, sample_latent,
-                    rng, "latent_post")
-                if self.training:
-                    z = zp
-        else:
-            z = self.evt_posterior(coding)
-        out = self.decoder(z[:, None], memory, (op_beta, op_gamma),
-                           (pp_beta, pp_gamma), self_allow, cross_allow,
-                           fold(rng, "decoder"))
-        return PredictorOutput(torch.relu(self.final_norm(out)), mu_o,
-                               logvar_o, mu_p, logvar_p)
+        with span("npvp.predictor"):
+            with span("npvp.predictor.nrmlp"):
+                op_beta, op_gamma = self.nrmlp(obs_coords)
+                pp_beta, pp_gamma = self.nrmlp(tgt_coords)
+            with span("npvp.predictor.encoder"):
+                memory, coding = self.event_coding(
+                    observed_feats, op_beta, op_gamma, obs_mask,
+                    fold(rng, "observe"))
+            N, To, H, W, _ = observed_feats.shape
+            TP = tgt_coords.shape[0] // (H * W)
+            self_allow = cross_allow = None
+            if tgt_mask is not None:
+                self_allow = tgt_mask.bool()[None, :].expand(TP, TP)
+            if obs_mask is not None:
+                cross_allow = obs_mask.bool()[None, :].expand(TP, To)
+            mu_o = logvar_o = mu_p = logvar_p = None
+            with span("npvp.predictor.latent"):
+                if self.stochastic:
+                    z, mu_o, logvar_o = self._latent(
+                        self.evt_prior, coding, eps_prior, sample_latent,
+                        rng, "latent_prior")
+                    if target_feats_gt is not None:
+                        _, pcoding = self.event_coding(
+                            target_feats_gt, pp_beta, pp_gamma, tgt_mask,
+                            fold(rng, "predict"))
+                        zp, mu_p, logvar_p = self._latent(
+                            self.evt_posterior, pcoding, eps_post,
+                            sample_latent, rng, "latent_post")
+                        if self.training:
+                            z = zp
+                else:
+                    z = self.evt_posterior(coding)
+            with span("npvp.predictor.decoder"):
+                out = self.decoder(z[:, None], memory, (op_beta, op_gamma),
+                                   (pp_beta, pp_gamma), self_allow,
+                                   cross_allow, fold(rng, "decoder"))
+            return PredictorOutput(torch.relu(self.final_norm(out)), mu_o,
+                                   logvar_o, mu_p, logvar_p)
 
 
 def build_predictor(cfg, dtype=torch.float32,

@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from npvp_tpu_torch.core.tracing import span
 from npvp_tpu_torch.nn.layers import (BatchNorm, ConvBNAct, conv_nhwc,
                                       linear, reflect_pad_2d)
 from npvp_tpu_torch.nn.upsample import (subpixel_conv_same,
@@ -263,10 +264,12 @@ class FrameAutoEncoder(nn.Module):
         return self.decoder(feats), feats
 
     def encode(self, x):
-        return self.encoder(x)
+        with span("npvp.ae.encode"):
+            return self.encoder(x)
 
     def decode(self, feats):
-        return self.decoder(feats)
+        with span("npvp.ae.decode"):
+            return self.decoder(feats)
 
 
 def build_ae(cfg, dtype=torch.float32) -> FrameAutoEncoder:

@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from npvp_tpu_torch.core import distributed as D
+from npvp_tpu_torch.core import tracing
 from npvp_tpu_torch.core.checkpoint import CheckpointManager
 from npvp_tpu_torch.core.config import Config, load_config
 from npvp_tpu_torch.core.device import resolve_device
@@ -218,7 +219,11 @@ class StepProfiler:
     before every train step and :meth:`stop_profiler` at teardown, which
     closes a window that a short run left open. The trace is written as
     ``<profile_dir>/trace_steps_<first>-<last>.json``, the steps it holds
-    (Chrome trace format, readable by Perfetto)."""
+    (Chrome trace format, readable by Perfetto). The window turns the
+    program's tracing (``core.tracing``) on, so the trace holds the spans
+    of the steps, the predictor's sublayers and the loader's wait; a window
+    that turned it on turns it off after, and drops the records it kept
+    (the trace holds them)."""
 
     def __init__(self, profile_dir: Optional[str], start_step: int = 10,
                  num_steps: int = 5):
@@ -226,6 +231,7 @@ class StepProfiler:
         self.start_step, self.num_steps = start_step, num_steps
         self._prof = None
         self._steps = (0, 0)  # first and last step inside the open window
+        self._traced = False  # whether the window turned tracing on
 
     def maybe_start_profiler(self, step: int) -> Optional[str]:
         """Open the window before step ``start_step``, close it before step
@@ -240,6 +246,8 @@ class StepProfiler:
                 activities.append(ProfilerActivity.CUDA)
             self._prof = profile(activities=activities)
             self._prof.__enter__()
+            self._traced = not tracing.enabled()
+            tracing.enable()
             self._steps = (step, step)
             return "started"
         if self._prof is None:
@@ -258,6 +266,9 @@ class StepProfiler:
         if torch.cuda.is_available():
             torch.cuda.synchronize()
         prof.__exit__(None, None, None)
+        if self._traced:
+            tracing.disable()
+            tracing.take()
         out = Path(self.profile_dir)
         out.mkdir(parents=True, exist_ok=True)
         path = out / "trace_steps_{}-{}.json".format(*self._steps)

@@ -69,6 +69,7 @@ from npvp_tpu_torch.core.sequence_parallel import sp_axis
 from npvp_tpu_torch.core.optim import (is_decoder_param,
                                        make_predictor_optimizer,
                                        predictor_schedule)
+from npvp_tpu_torch.core.tracing import span
 from npvp_tpu_torch.core.train_state import TrainState, param_count
 from npvp_tpu_torch.data.loader import DataModule
 from npvp_tpu_torch.models.coords import (coordinate_grid,
@@ -219,13 +220,17 @@ def make_steps(cfg: Config, ae: FrameAutoEncoder, mode: str,
                           batch["future"], future, None)
 
     def train_step(state: TrainState, batch, rng: Rng):
-        state.model.train()
-        loss, metrics, *_ = forward(state.model, batch, rows(rng, batch))
-        if cfg.Env.debug_nans:
-            check_finite(metrics, state.step)
-        loss.backward()
-        state.apply_gradients()
-        return {k: v.detach() for k, v in metrics.items()}
+        with span("npvp.train.step"):
+            state.model.train()
+            with span("npvp.train.forward"):
+                loss, metrics, *_ = forward(state.model, batch,
+                                            rows(rng, batch))
+            if cfg.Env.debug_nans:
+                check_finite(metrics, state.step)
+            with span("npvp.train.backward"):
+                loss.backward()
+            state.apply_gradients()
+            return {k: v.detach() for k, v in metrics.items()}
 
     def eval_step(state: TrainState, batch, rng: Rng):
         state.module.eval()
@@ -234,7 +239,9 @@ def make_steps(cfg: Config, ae: FrameAutoEncoder, mode: str,
         return {k + "_val": v for k, v in metrics.items()}
 
     def place(batch):
-        return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+        with span("npvp.train.place"):
+            return {k: torch.from_numpy(v).to(device)
+                    for k, v in batch.items()}
 
     return Steps(train_step, eval_step, place,
                  lambda model, batch, rng: forward(model, batch,
