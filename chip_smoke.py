@@ -3,26 +3,30 @@
 
     python3 chip_smoke.py [--phases 1,2]
 
-Builds the temporal-attention kernel from ``npvp_tpu_torch/kernels/csrc``
-with nvcc, then runs fifteen phases (all of them by default; ``--phases``
-picks some, for a short check), each printing its own lines:
+Builds the temporal-attention and LayerNorm kernels from
+``npvp_tpu_torch/kernels/csrc`` with nvcc, then runs sixteen phases (all of
+them by default; ``--phases`` picks some, for a short check), each printing
+its own lines:
 
 1. environment: the card's name and power limit, torch, CUDA, nvcc, the
-   kernel's build time, ptxas' registers and spills, and the dynamic shared
-   memory of one block of each variant;
+   kernels' build times, ptxas' registers and spills, and the dynamic
+   shared memory of one block of each attention variant;
 2. kernel against its plain PyTorch twin at the flagship call-site shapes,
    the stage-2 eval steps' shapes (SMMNIST T = 15; Cityscapes Tq 10 over
    Tk 2 and T 2; KITTI T 4/5 at 1024 sites; KTH rand-context T = 20), a
    ragged site count, Tq ≠ Tk and a query row whose keys are all masked,
    fp32 (tol 1e-4) and bf16 (tol 2e-2), both variants (fused output
-   projection, attention only);
+   projection, attention only); then the LayerNorm kernel against its twin
+   at the flagship's and batch 1's norm shapes, fp32 and bf16, with and
+   without the GELU (tests/test_torch_layer_norm_cuda.py's tolerances);
 3. the golden fixture: the port in fp32 with the kernel launched against
    the JAX package's committed outputs (NPVP-D and NPVP-S, VFP and
    fractional-time HVRC), atol 1e-4;
 4. flagship serving (KTH Unified NPVP-S at full width, random weights from
    a seed, batch 64, VFP 10→10, bf16) through ``VideoPredictor.freeze_task``:
-   launches per forward, kernel path against the plain path, ms per
-   forward, predicted frames/s, peak memory; then a profiler breakdown;
+   launches per forward (32 attention, 60 + 66 LayerNorm), kernel path
+   against the plain path, ms per forward, predicted frames/s, peak
+   memory; then a profiler breakdown;
 5. per call site and variant: kernel, plain twin and library (SDPA, plus
    F.linear when fused) times beside the least time the card could take
    (bytes or FLOP bound), kernel ÷ bound, and whether the kernel beats the
@@ -171,6 +175,13 @@ picks some, for a short check), each printing its own lines:
    gives the eval loss of the state that wrote it; 40 launches an eval
    step; a background write into a path that is a file raises at
    ``wait()``.
+16. the LayerNorm kernel per flagship forward (batch 64 and batch 1, bf16):
+   the norms' calls as one forward makes them (60 ``hwc``, 66 ``token``),
+   each call shape timed on the device alone (CUDA-graph replays) for the
+   kernel, the plain twin, the library (``F.layer_norm`` + ``F.gelu``,
+   which the port never calls) and a copy of its input (the card's
+   practical streaming rate), beside its byte bound (input and output
+   once, the affine once), summed over the forward.
 
 The phases run in a child process; this one exits with its code once every
 process the run started has ended (see ``supervise``). Any failure exits
@@ -377,13 +388,23 @@ def phase_environment(torch, ta):
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)} "
           f"x {torch.cuda.device_count()}")
-    nvcc = subprocess.run([ta.nvcc_path(), "--version"], capture_output=True,
+    from npvp_tpu_torch.kernels._nvcc import nvcc_path
+
+    nvcc = subprocess.run([nvcc_path(), "--version"], capture_output=True,
                           text=True, timeout=60)
     print("nvcc:", nvcc.stdout.strip().splitlines()[-1])
     lib = ta.build()
     print(f"kernel build: {ta.BUILD_INFO.get('seconds', 0.0):.1f} s -> "
           f"{Path(lib).relative_to(HERE)}")
     for line in ta.BUILD_INFO.get("ptxas", []):
+        print("  " + line)
+    from npvp_tpu_torch.kernels import layer_norm as ln
+
+    lib = ln.build()
+    print(f"layer-norm kernel build: "
+          f"{ln.BUILD_INFO.get('seconds', 0.0):.1f} s -> "
+          f"{Path(lib).relative_to(HERE)}")
+    for line in ln.BUILD_INFO.get("ptxas", []):
         print("  " + line)
     for name, _, Tq, Tk, _, _ in SITES[:2]:
         for fuse in (True, False):
@@ -449,6 +470,59 @@ def phase_kernel_vs_plain(torch, ta):
                 check(ok, f"{variant} {dt} {name} disagrees with the twin")
                 if dtype == torch.bfloat16:
                     worst[variant] = max(worst[variant], err.max().item())
+    worst["layer_norm"] = layer_norm_vs_plain(torch)
+    return worst
+
+
+# the norms' (rows, trailing shape, GELU, calls a flagship forward) at batch
+# 64, 10 frames: the conv FFN's (H, W, C) norms over the hidden width (two
+# of each of its 20 MLPs) and over C, each with the GELU after it, and the
+# token norms over C (4 an encoder block, 6 a decoder block, the final
+# norm twice)
+NORMS = [("hwc_hidden", 640, (8, 8, 2048), "gelu_tanh", 40),
+         ("hwc_out", 640, (8, 8, 512), "gelu_tanh", 20),
+         ("token", 40960, (512,), "none", 66)]
+
+
+def norm_inputs(torch, rows, affine, dtype, seed=0):
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = 0.5 + 2 * torch.randn((rows, *affine), generator=g, device=dev)
+    w = 1 + 0.3 * torch.randn(affine, generator=g, device=dev)
+    b = 0.2 * torch.randn(affine, generator=g, device=dev)
+    return x.to(dtype), w, b
+
+
+def layer_norm_vs_plain(torch):
+    """The LayerNorm kernel against its twin at batch 64's and batch 1's
+    norm shapes; returns the largest bf16 error."""
+    from npvp_tpu_torch.kernels import layer_norm as ln
+
+    worst = 0.0
+    cases = [(n, r, a) for n, r, a, _, _ in NORMS] + [
+        (n + "_b1", r // 64, a) for n, r, a, _, _ in NORMS]
+    for dtype, rel in ((torch.float32, 1e-5), (torch.bfloat16, 2 ** -7)):
+        for act in ("none", "gelu_tanh" if dtype == torch.bfloat16
+                    else "gelu"):
+            for name, rows, affine in cases:
+                x, w, b = norm_inputs(torch, rows, affine, dtype, rows)
+                with torch.no_grad():
+                    got = ln.layer_norm(x, w, b, eps=1e-5, out_dtype=dtype,
+                                        act=act).float()
+                    want = ln.layer_norm_plain(x, w, b, 1e-5, dtype,
+                                               act).float()
+                torch.cuda.synchronize()
+                err = (got - want).abs()
+                ok = bool((err <= 1e-5 + rel * want.abs()).all()) and bool(
+                    torch.isfinite(got).all())
+                dt = str(dtype).replace("torch.", "")
+                print(f"layer_norm {dt:8s} {name:14s} {rows} x "
+                      f"{tuple(affine)} act={act}: max|d|="
+                      f"{err.max().item():.3e} (tol 1e-5+{rel:.3g}|x|) "
+                      f"{'ok' if ok else 'FAIL'}")
+                check(ok, f"layer_norm {dt} {name} disagrees with the twin")
+                if dtype == torch.bfloat16:
+                    worst = max(worst, err.max().item())
     return worst
 
 
@@ -521,21 +595,30 @@ def phase_flagship(torch, ta):
         finally:
             ta.FUSE_OPROJ = True
 
-    outs, launches = {}, {}
+    from npvp_tpu_torch.kernels import layer_norm as ln
+
+    outs, launches, norms = {}, {}, {}
     for name in runs:
         forward(name)  # warm-up: cuDNN and cuBLAS choose their kernels
-        for key in ta.LAUNCHES:
-            ta.LAUNCHES[key] = 0
+        for counter in (ta.LAUNCHES, ln.LAUNCHES):
+            for key in counter:
+                counter[key] = 0
         outs[name] = forward(name)
         torch.cuda.synchronize()
-        launches[name] = dict(ta.LAUNCHES)
-        print(f"{name:12s}: one forward -> kernel launches {launches[name]}")
+        launches[name], norms[name] = dict(ta.LAUNCHES), dict(ln.LAUNCHES)
+        print(f"{name:12s}: one forward -> kernel launches {launches[name]}, "
+              f"layer-norm launches {norms[name]}")
     check(launches["kernel_oproj"] == {"oproj": 32, "attn": 0},
           "the fused kernel must serve all 32 attention calls")
     check(launches["kernel_attn"] == {"oproj": 0, "attn": 32},
           "the attention-only kernel must serve all 32 attention calls")
     check(launches["plain"] == {"oproj": 0, "attn": 0},
           "the plain path launched a kernel")
+    for name in ("kernel_oproj", "kernel_attn"):
+        check(norms[name] == {"hwc": 60, "token": 66},
+              f"{name}: the layer-norm kernel must serve all 126 norms")
+    check(norms["plain"] == {"hwc": 0, "token": 0},
+          "the plain path launched the layer-norm kernel")
     shape = (64, 10, d.img_size, d.img_size, d.img_channels)
     for name, out in outs.items():
         check(tuple(out.shape) == shape and bool(torch.isfinite(
@@ -639,6 +722,27 @@ def time_call(torch, fn, n=20):
     return start.elapsed_time(end) / n
 
 
+def time_graph(torch, fn, n=20):
+    """ms a call of ``fn`` on the device alone: ``n`` calls captured in one
+    CUDA graph and replayed, so that no host time between launches counts."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / n
+
+
 def phase_per_call(torch, ta):
     """Per call site, bf16: kernel, twin and library ms and the bound,
     summed over a flagship forward and over a stage-2 eval step."""
@@ -737,20 +841,26 @@ def phase_training(torch, ta):
               f"max_T {p.max_T}), batch {d.batch_size}, "
               f"{cfg.Env.compute_dtype}, exec_mode {p.exec_mode}, "
               f"dropout {p.dropout}, drop_path {p.drop_path}")
+        from npvp_tpu_torch.kernels import layer_norm as ln
+
         record = {"train": [], "eval": []}
-        clock = [0.0, 0]
+        clock = [0.0, 0, 0]
 
         def on_step(kind, index, metrics):
             torch.cuda.synchronize()
             now, launched = time.perf_counter(), sum(ta.LAUNCHES.values())
+            normed = sum(ln.LAUNCHES.values())
             loss = float(metrics["loss" if kind == "train" else "loss_val"])
             record[kind].append(dict(ms=(now - clock[0]) * 1e3, loss=loss,
-                                     launches=launched - clock[1]))
+                                     launches=launched - clock[1],
+                                     norm_launches=normed - clock[2]))
             check(np.isfinite(loss), f"{kind} step {index}: loss {loss}")
-            clock[:] = [time.perf_counter(), sum(ta.LAUNCHES.values())]
+            clock[:] = [time.perf_counter(), sum(ta.LAUNCHES.values()),
+                        sum(ln.LAUNCHES.values())]
 
-        for key in ta.LAUNCHES:
-            ta.LAUNCHES[key] = 0
+        for counter in (ta.LAUNCHES, ln.LAUNCHES):
+            for key in counter:
+                counter[key] = 0
         torch.cuda.reset_peak_memory_stats()
         t0 = clock[0] = time.perf_counter()
         state = s2.train(cfg, on_step=on_step)
@@ -765,6 +875,10 @@ def phase_training(torch, ta):
         check(len(ev) >= 1, "no eval step ran")
         check(all(r["launches"] == 0 for r in tr),
               "a train step launched the kernel")
+        check(all(r["norm_launches"] == 0 for r in tr),
+              "a train step launched the layer-norm kernel")
+        check(all(r["norm_launches"] > 0 for r in ev),
+              "an eval step ran its norms off the layer-norm kernel")
         check(all(r["launches"] == 40 for r in ev),
               f"eval steps launched {[r['launches'] for r in ev]}, not 40")
         # and one eval-mode forward (32 launches) for the GIF of epoch 0
@@ -781,7 +895,9 @@ def phase_training(torch, ta):
               f"{eval_ms:.2f} ms median; peak memory {peak:.2f} GiB")
         print(f"kernel launches: {[r['launches'] for r in tr]} per train "
               f"step, {[r['launches'] for r in ev]} per eval step; "
-              f"{launches}")
+              f"{launches}; layer-norm launches "
+              f"{[r['norm_launches'] for r in tr]} per train step, "
+              f"{[r['norm_launches'] for r in ev]} per eval step")
         print(f"losses: train {[round(r['loss'], 4) for r in tr]}, eval "
               f"{[round(r['loss'], 4) for r in ev]}")
 
@@ -3551,6 +3667,102 @@ def phase_checkpoints(torch, ta):
     return arms
 
 
+def phase_layer_norm(torch, ta):
+    """The LayerNorm kernel per flagship forward (batch 64 and batch 1,
+    bf16): each call shape of one forward timed for the kernel, the twin
+    and the library beside its byte bound, summed over the forward."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from npvp_tpu_torch.core.config import flagship_config
+    from npvp_tpu_torch.kernels import layer_norm as ln
+    from npvp_tpu_torch.models.inference import VideoPredictor
+
+    cfg = flagship_config()
+    p, d = cfg.Predictor, cfg.Dataset
+    vp = VideoPredictor.from_random_init(cfg, torch.bfloat16, seed=0,
+                                         exec_mode="pallas", device="cuda")
+    fn = vp.freeze_task(np.arange(10), np.arange(10, 20))
+    result = {}
+    for batch in (64, 1):
+        gen = torch.Generator(device="cuda").manual_seed(batch)
+        frames = torch.rand((batch, 10, d.img_size, d.img_size,
+                             d.img_channels), generator=gen,
+                            device="cuda") * 2 - 1
+        eps = torch.randn((batch, p.max_H, p.max_W, p.embed_dim),
+                          generator=gen, device="cuda")
+        calls, real = {}, ln.launch
+
+        def recording(x, weight, bias, eps, out_dtype, act="none"):
+            key = (x.numel() // weight.numel(), tuple(weight.shape),
+                   x.dtype, out_dtype, act, eps)
+            calls[key] = calls.get(key, 0) + 1
+            return real(x, weight, bias, eps, out_dtype, act)
+
+        ln.launch = recording
+        try:
+            fn(frames, eps=eps)
+            torch.cuda.synchronize()
+        finally:
+            ln.launch = real
+        total = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+                     copy_ms=0.0, launches={"hwc": 0, "token": 0},
+                     per_call=[])
+        for (rows, affine, dtype, out_dtype, act, e), n in calls.items():
+            x, w, b = norm_inputs(torch, rows, affine, dtype)
+            wl, bl = w.to(dtype), b.to(dtype)
+            approx = "tanh" if act == "gelu_tanh" else "none"
+
+            def library():
+                y = F.layer_norm(x, affine, wl, bl, e)
+                return y if act == "none" else F.gelu(y, approximate=approx)
+
+            saved = dict(ln.LAUNCHES)
+            out = torch.empty_like(x)
+            with torch.no_grad():
+                k_ms = time_graph(torch, lambda: ln.launch(
+                    x, w, b, e, out_dtype, act))
+                p_ms = time_graph(torch, lambda: ln.layer_norm_plain(
+                    x, w, b, e, out_dtype, act), n=5)
+                l_ms = time_graph(torch, library)
+                c_ms = time_graph(torch, lambda: out.copy_(x))
+            ln.LAUNCHES.update(saved)  # timing is not the path's run
+            L = w.numel()
+            nbytes = rows * L * (x.element_size()
+                                 + torch.empty((), dtype=out_dtype)
+                                 .element_size()) + 2 * 4 * L
+            bound = nbytes / PEAK_BYTES_S * 1e3
+            kind = "token" if len(affine) == 1 else "hwc"
+            print(f"batch {batch} {kind:5s} {rows} x {affine} "
+                  f"{str(dtype)[6:]}->{str(out_dtype)[6:]} act={act}: "
+                  f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, library "
+                  f"{l_ms:.4f} ms, bound {bound:.4f} ms "
+                  f"({nbytes / 1e6:.1f} MB), a copy of x {c_ms:.4f} ms; "
+                  f"kernel/bound {k_ms / bound:.2f}, {n}/forward")
+            total["launches"][kind] += n
+            total["ms"] += n * k_ms
+            total["plain_ms"] += n * p_ms
+            total["library_ms"] += n * l_ms
+            total["bound_ms"] += n * bound
+            total["copy_ms"] += n * c_ms
+            total["per_call"].append(dict(
+                rows=rows, affine=list(affine), act=act, calls=n, ms=k_ms,
+                plain_ms=p_ms, library_ms=l_ms, bound_ms=bound,
+                copy_ms=c_ms))
+        check(total["launches"] == {"hwc": 60, "token": 66},
+              f"batch {batch}: norms {total['launches']}, not 60 + 66")
+        print(f"batch {batch}: layer-norm kernel {total['ms']:.3f} ms a "
+              f"forward against its byte bound {total['bound_ms']:.3f} ms "
+              f"({total['ms'] / total['bound_ms']:.2f}x); plain twin "
+              f"{total['plain_ms']:.3f} ms, library {total['library_ms']:.3f}"
+              f" ms, copies of the inputs {total['copy_ms']:.3f} ms")
+        result[f"b{batch}"] = total
+    print("layer_norm " + json.dumps({k: {key: v[key] for key in (
+        "ms", "plain_ms", "library_ms", "bound_ms", "copy_ms", "launches")}
+        for k, v in result.items()}))
+    return result
+
+
 def main(argv) -> int:
     import argparse
 
@@ -3602,7 +3814,8 @@ def main(argv) -> int:
                phase_sequence_pipeline),
               ("SMMNIST stream, config generator", phase_smmnist_stream),
               ("report tools", phase_reports),
-              ("checkpoints", phase_checkpoints)]
+              ("checkpoints", phase_checkpoints),
+              ("layer-norm kernel", phase_layer_norm)]
     if picked is not None:
         phases = [ph for i, ph in enumerate(phases, 1) if i in picked]
     WORK["dir"] = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -3727,6 +3940,19 @@ def main(argv) -> int:
                           if v == "oproj" else None),
             "times": "per flagship forward: the sum over its 32 calls, bf16",
             "per_call": acc["per_call"]})
+    norms = results["layer-norm kernel"]
+    kernels.append({
+        "name": "layer_norm", "route": "cuda",
+        "source": "npvp_tpu_torch/kernels/csrc/layer_norm.cu",
+        "replaces": None, "launches": norms["b64"]["launches"],
+        "max_abs_err": worst["layer_norm"],
+        **{k: norms["b64"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                        "library_ms")},
+        "bound_by": "bytes",
+        "batch_1": {k: norms["b1"][k] for k in ("ms", "plain_ms",
+                                                "bound_ms", "library_ms")},
+        "times": "per flagship forward: the sum over its 126 calls, bf16",
+        "per_call": norms["b64"]["per_call"]})
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

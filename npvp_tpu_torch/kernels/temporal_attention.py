@@ -30,20 +30,14 @@ mode only, as the JAX package reaches its kernel only when
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-import tempfile
-import time
 import weakref
 from pathlib import Path
 from typing import Optional
 
 import torch
 
-from npvp_tpu_torch.core.device import BUILD_DIR
+from npvp_tpu_torch.kernels import _nvcc
 
 NEG_INF = float(torch.finfo(torch.float32).min)
 
@@ -58,8 +52,6 @@ FUSE_OPROJ = True
 LAUNCHES = {"oproj": 0, "attn": 0}
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "temporal_attention.cu"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # the kernel keeps a tile of sites whose tokens fit 64 rows
 MAX_TOKENS = 64
 # the bf16 kernel's heads are 64 wide (one 128-byte row) and its fused
@@ -99,40 +91,11 @@ def temporal_attention_plain(q, k, v, bias=None, *, num_heads: int, wo=None,
     return out.to(q.dtype)
 
 
-def nvcc_path() -> str:
-    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(found):
-        raise RuntimeError("nvcc not found: the temporal-attention kernel "
-                           "cannot be built")
-    return found
-
-
 def build() -> Path:
     """Compile the kernel into ``kernels/_build/`` (named by the source's
     hash, so an edited source builds anew) and return the library path.
     ``BUILD_INFO`` records the build time and ptxas' register report."""
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"libtemporal_attention_{tag}.so"
-    if out.exists():
-        BUILD_INFO.setdefault("library", str(out))
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    t0 = time.perf_counter()
-    proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)
-    BUILD_INFO.update(library=str(out), seconds=time.perf_counter() - t0,
-                      ptxas=[line.strip() for line in proc.stderr.splitlines()
-                             if any(w in line for w in (
-                                 "entry function", "registers", "spill"))])
-    return out
+    return _nvcc.build(SOURCE, "libtemporal_attention", BUILD_INFO)
 
 
 def _load():

@@ -86,7 +86,8 @@ class NPPredictor(nn.Module):
         self.decoder = VidHRFormerDecoderNAR(
             transformer_layers, embed_dim, num_heads, remat=remat,
             **block_kw)
-        self.final_norm = TokenLayerNorm(embed_dim, 1e-5, dtype=dtype)
+        self.final_norm = TokenLayerNorm(embed_dim, 1e-5, dtype=dtype,
+                                         exec_mode=exec_mode)
 
     def event_coding(self, feats, pos_beta, pos_gamma, mask=None,
                      rng: Optional[Rng] = None):

@@ -28,6 +28,7 @@ from torch import nn
 from npvp_tpu_torch.core.distributed import (all_reduce_sum, copy_to_model,
                                              reduce_from_model)
 from npvp_tpu_torch.core.sequence_parallel import sp_param, span
+from npvp_tpu_torch.kernels import layer_norm as ln_kernel
 from npvp_tpu_torch.nn.quant import int8_contract
 
 
@@ -309,20 +310,35 @@ def sync_batchnorm(module: nn.Module, data_axis) -> nn.Module:
     return module
 
 
+def norm_kernel_path(norm: nn.Module, x, sp) -> bool:
+    """A norm's kernel path (``kernels/layer_norm.py``): ``exec_mode
+    "pallas"``, eval mode, no sequence-parallel shard, a CUDA tensor. The
+    rest (training, the xla and int8 modes, shards, the CPU) runs the
+    eager code, which the JAX parity tests hold."""
+    return (norm.exec_mode == "pallas" and not norm.training and sp is None
+            and x.device.type in ln_kernel.DEVICES)
+
+
 class TokenLayerNorm(nn.Module):
     """LayerNorm over the trailing channel axis with fp32 statistics and the
     affine applied in the compute dtype. Default eps 1e-6 as in flax; every
-    VidHRFormer call site passes 1e-5."""
+    VidHRFormer call site passes 1e-5. On the kernel path
+    (:func:`norm_kernel_path`) the hand-written kernel computes it, the
+    affine in fp32 and one rounding to ``dtype``."""
 
     def __init__(self, channels: int, eps: float = 1e-6,
-                 dtype=torch.float32):
+                 dtype=torch.float32, exec_mode: str = "xla"):
         super().__init__()
-        self.eps, self.dtype = eps, dtype
+        self.eps, self.dtype, self.exec_mode = eps, dtype, exec_mode
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x, sp=None):
         """``sp``: ``x`` is a sequence-parallel shard."""
+        if norm_kernel_path(self, x, sp):
+            return ln_kernel.layer_norm(x.contiguous(), self.weight,
+                                        self.bias, eps=self.eps,
+                                        out_dtype=self.dtype)
         weight, bias = sp_param(self.weight, sp), sp_param(self.bias, sp)
         mean, var = fp32_moments(x, -1)
         inv = torch.rsqrt(var + self.eps)
@@ -333,20 +349,32 @@ class TokenLayerNorm(nn.Module):
 
 class LayerNormHWC(nn.Module):
     """LayerNorm over the trailing (H, W, C) axes with an (H, W, C) affine
-    (the reference's ``nn.LayerNorm((C, H, W))`` in channels-last).
+    (the reference's ``nn.LayerNorm((C, H, W))`` in channels-last). On the
+    kernel path (:func:`norm_kernel_path`) the hand-written kernel computes
+    it, with the GELU ``act`` ("gelu_tanh" or "gelu") after it when asked,
+    the affine and the GELU in fp32 and one rounding to ``x.dtype``.
 
     On a sequence-parallel shard (``sp``: ``x`` holds rows ``rank·h`` …
     of H) the statistics are the whole sample's: (Σx, Σx², count) summed
     over the model axis in float32, with the sum's gradient; the affine
     is used at this shard's rows."""
 
-    def __init__(self, shape, eps: float = 1e-5):
+    def __init__(self, shape, eps: float = 1e-5, exec_mode: str = "xla"):
         super().__init__()
-        self.eps = eps
+        self.eps, self.exec_mode = eps, exec_mode
         self.weight = nn.Parameter(torch.ones(tuple(shape)))
         self.bias = nn.Parameter(torch.zeros(tuple(shape)))
 
-    def forward(self, x, sp=None):
+    def forward(self, x, sp=None, act: Optional[str] = None):
+        """``act``: the GELU the kernel applies after the norm, on its kernel
+        path only (off it the caller applies the GELU)."""
+        if norm_kernel_path(self, x, sp):
+            return ln_kernel.layer_norm(x.contiguous(), self.weight,
+                                        self.bias, eps=self.eps,
+                                        out_dtype=x.dtype,
+                                        act=act or "none")
+        if act is not None:
+            raise ValueError("the GELU epilogue is the kernel path's")
         weight, bias = self.weight, self.bias
         if sp is None:
             mean, var = fp32_moments(x, (-3, -2, -1))

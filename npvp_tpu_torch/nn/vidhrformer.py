@@ -17,8 +17,11 @@ drawn from an explicit :class:`~npvp_tpu_torch.nn.layers.Rng` and, with
 (``torch.utils.checkpoint``). With ``exec_mode="pallas"`` the affine path of
 a module in eval mode hands its (sites, T, H·D) q/k/v to the hand-written
 kernel (``npvp_tpu_torch.kernels.temporal_attention``), output projection
-included; otherwise it takes the plain attention. The kernel has no
-backward, so nothing that is trained reaches it. With ``exec_mode="int8"``
+included; otherwise it takes the plain attention. In the same mode the
+norms of a module in eval mode run as the hand-written LayerNorm kernel
+(``npvp_tpu_torch.kernels.layer_norm``) on a CUDA tensor, the conv FFN's
+GELUs as its epilogue. The kernels have no backward, so nothing that is
+trained reaches them. With ``exec_mode="int8"``
 every projection and feed-forward product of the input runs as a dynamic
 int8 product (``npvp_tpu_torch.nn.quant``), the attention itself in the
 compute dtype; the positional terms stay in the compute dtype, as in the
@@ -40,6 +43,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from npvp_tpu_torch.kernels import layer_norm as ln_kernel
 from npvp_tpu_torch.kernels import temporal_attention as ta_kernel
 from npvp_tpu_torch.core.distributed import copy_to_model, reduce_from_model
 from npvp_tpu_torch.core.sequence_parallel import (gather_h, h_split,
@@ -50,7 +54,8 @@ from npvp_tpu_torch.core.sequence_parallel import (gather_h, h_split,
 from npvp_tpu_torch.nn.layers import (DropPath, LayerNormHWC,
                                       MultiHeadAttention, Rng,
                                       TokenLayerNorm, dropout, fold,
-                                      fp32_moments, linear, row_parallel,
+                                      fp32_moments, linear, norm_kernel_path,
+                                      row_parallel,
                                       scaled_dot_product_attention, tp_split)
 from npvp_tpu_torch.nn.neural_process import pos_feat_fuse
 from npvp_tpu_torch.nn.quant import int8_contract
@@ -214,7 +219,8 @@ class SpatialWindowAttention(nn.Module):
 
 
 def _gelu_for(dtype):
-    """Exact GELU in fp32, tanh-approximated GELU in bf16."""
+    """Exact GELU in fp32, tanh-approximated GELU in bf16 (the forms of the
+    norm kernel's epilogue in ``MlpDWBN``)."""
     approx = "tanh" if dtype == torch.bfloat16 else "none"
     return lambda x: F.gelu(x, approximate=approx)
 
@@ -224,42 +230,54 @@ class MlpDWBN(nn.Module):
     per-sample (H, W, C) LayerNorm after each stage, dropout after the last
     two. The 1×1 convs are ``nn.Linear`` over the channel axis, dynamic
     int8 products with ``quant``; the depthwise conv stays in the compute
-    dtype. On a sequence-parallel H shard (``sp``) the depthwise conv reads
-    a one-row halo of each neighbour and the LayerNorms take the whole
-    sample's statistics."""
+    dtype. On the norms' kernel path (``exec_mode "pallas"`` in eval mode,
+    a CUDA tensor) each GELU is the hand-written norm kernel's epilogue. On
+    a sequence-parallel H shard (``sp``) the depthwise conv reads a one-row
+    halo of each neighbour and the LayerNorms take the whole sample's
+    statistics."""
 
     def __init__(self, in_features: int, hidden_features: int,
                  out_features: int, spatial: Tuple[int, int],
                  dropout: float = 0.0, dtype=torch.float32,
-                 quant: bool = False):
+                 quant: bool = False, exec_mode: str = "xla"):
         super().__init__()
         H, W = spatial
         self.dropout, self.dtype, self.quant = dropout, dtype, quant
         self.fc1 = nn.Linear(in_features, hidden_features)
-        self.norm1 = LayerNormHWC((H, W, hidden_features))
+        self.norm1 = LayerNormHWC((H, W, hidden_features),
+                                  exec_mode=exec_mode)
         self.dw3x3 = nn.Conv2d(hidden_features, hidden_features, 3,
                                padding=1, groups=hidden_features)
-        self.norm2 = LayerNormHWC((H, W, hidden_features))
+        self.norm2 = LayerNormHWC((H, W, hidden_features),
+                                  exec_mode=exec_mode)
         self.fc2 = nn.Linear(hidden_features, out_features)
-        self.norm3 = LayerNormHWC((H, W, out_features))
+        self.norm3 = LayerNormHWC((H, W, out_features), exec_mode=exec_mode)
 
     def forward(self, x, rng: Optional[Rng] = None, sp=None):
         N, T, H, W, C = x.shape
-        act, dt = _gelu_for(self.dtype), self.dtype
+        dt = self.dtype
+        # the three norms share the kernel path; on it the GELU after each
+        # is the kernel's epilogue
+        if norm_kernel_path(self.norm1, x, sp):
+            epilogue = "gelu_tanh" if dt == torch.bfloat16 else "gelu"
+            act = lambda y: y  # noqa: E731
+        else:
+            epilogue, act = None, _gelu_for(dt)
         drop = lambda y, tag: dropout(y, self.dropout,  # noqa: E731
                                       self.training, fold(rng, tag),
                                       h_split(sp, 1))
         y = x.reshape(N * T, H, W, C)
-        y = act(self.norm1(linear(y, self.fc1, dt, self.quant, sp), sp))
+        y = act(self.norm1(linear(y, self.fc1, dt, self.quant, sp), sp,
+                           epilogue))
         dw, pad = self.dw3x3, (1, 1)
         if sp is not None:  # H's padding: the neighbours' rows
             y, pad = halo_rows(y, sp), (0, 1)
         y = F.conv2d(y.permute(0, 3, 1, 2), sp_param(dw.weight, sp).to(dt),
                      sp_param(dw.bias, sp).to(dt), 1, pad, 1,
                      dw.groups).permute(0, 2, 3, 1)
-        y = drop(act(self.norm2(y, sp)), "drop2")
-        y = drop(act(self.norm3(linear(y, self.fc2, dt, self.quant, sp),
-                                sp)), "drop3")
+        y = drop(act(self.norm2(y, sp, epilogue)), "drop2")
+        y = drop(act(self.norm3(linear(y, self.fc2, dt, self.quant, sp), sp,
+                                epilogue)), "drop3")
         return y.reshape(N, T, H, W, -1)
 
 
@@ -378,15 +396,15 @@ class VidHRFormerBlockEnc(nn.Module):
         self.dropout, self.quant = dropout, exec_mode == "int8"
         for i in range(1, self.n_norms + 1):
             # torch nn.LayerNorm's eps, as at every reference call site
-            self.add_module(f"norm{i}", TokenLayerNorm(embed_dim, 1e-5,
-                                                       dtype=dtype))
+            self.add_module(f"norm{i}", TokenLayerNorm(
+                embed_dim, 1e-5, dtype=dtype, exec_mode=exec_mode))
         self.drop_path = DropPath(drop_path)
         self.slmhsa = SpatialWindowAttention(embed_dim, num_heads,
                                              window_size, dropout, exec_mode,
                                              dtype)
         self.spatial_ffn = MlpDWBN(embed_dim, ffn_hidden_ratio * embed_dim,
                                    embed_dim, spatial, dropout, dtype,
-                                   self.quant)
+                                   self.quant, exec_mode)
         self.temporal_mhsa = TemporalAttention(embed_dim, num_heads, dropout,
                                                exec_mode, dtype)
         self.linear1 = nn.Linear(embed_dim, dim_feedforward)
@@ -527,7 +545,7 @@ class VidHRFormerBlockDecNAR(VidHRFormerBlockEnc):
                                               exec_mode, dtype)
         self.spatial_ffn1 = MlpDWBN(embed_dim, ffn_hidden_ratio * embed_dim,
                                     embed_dim, spatial, dropout, dtype,
-                                    self.quant)
+                                    self.quant, exec_mode)
 
     def forward(self, tgt, query_evt, memory, mem_pos, tgt_pos,
                 self_allow=None, cross_allow=None, cross_pkv=None,
