@@ -51,6 +51,11 @@ from npvp_tpu_torch.tools.weights import (load_flax, load_trained,
                                           load_weights, random_init)
 
 
+# Windows run by ``VideoPredictor.vfp_windowed``: it adds one a window;
+# nothing else touches it but a caller that resets it.
+WINDOWS = {"run": 0}
+
+
 class _FrozenTask(nn.Module):
     """One task's forward, frames (and NPVP-S's noise) → predicted frames,
     with the coordinate grids held as buffers: the module that
@@ -354,7 +359,10 @@ class VideoPredictor:
         0..P-1 and predicts the next ``chunk`` frames (by default the most
         that fit, ``max_T − P``); its predictions roll into the next
         window's context. NPVP-S draws each window's noise from the one
-        ``generator`` in window order, or takes ``eps[w]`` for window w."""
+        ``generator`` in window order, or takes ``eps[w]`` for window w.
+        The call is one ``npvp.serve.request`` span, each window an
+        ``npvp.serve.window`` span inside it, counted in
+        :data:`WINDOWS`."""
         P = past_frames.shape[1]
         max_chunk = self.cfg.Predictor.max_T - P
         chunk = max_chunk if chunk is None else chunk
@@ -363,16 +371,19 @@ class VideoPredictor:
                              f"{max_chunk}] for context {P} with "
                              f"max_T={self.cfg.Predictor.max_T}")
         gen = self._generator(generator)
-        oc, tc = self._coords(np.arange(P)), self._coords(
-            np.arange(P, P + chunk))
-        ctx = self._frames(past_frames)
-        preds = []
-        for w in range(-(-num_future // chunk)):
-            out = self._run(ctx, oc, tc, None if eps is None else eps[w],
-                            gen)
-            preds.append(out)
-            ctx = torch.cat([ctx, out.float()], dim=1)[:, -P:]
-        return torch.cat(preds, dim=1)[:, :num_future]
+        with span("npvp.serve.request"):
+            oc, tc = self._coords(np.arange(P)), self._coords(
+                np.arange(P, P + chunk))
+            ctx = self._frames(past_frames)
+            preds = []
+            for w in range(-(-num_future // chunk)):
+                with span("npvp.serve.window"):
+                    out = self._run(ctx, oc, tc,
+                                    None if eps is None else eps[w], gen)
+                    WINDOWS["run"] += 1
+                preds.append(out)
+                ctx = torch.cat([ctx, out.float()], dim=1)[:, -P:]
+            return torch.cat(preds, dim=1)[:, :num_future]
 
     def vpe(self, future_frames, num_past: int, eps=None, generator=None):
         F = future_frames.shape[1]

@@ -38,7 +38,8 @@ def _max_pool_2x2(x):
 class NonLocalAttention2D(nn.Module):
     """Global spatial attention with 2×2 max-pooled keys/values and a
     zero-initialised residual gate ``gamma``; logits are unscaled (SAGAN
-    convention) and kept in the compute dtype with fp32 softmax statistics."""
+    convention) and kept in the compute dtype with fp32 softmax statistics.
+    Each call is one ``npvp.ae.nonlocal`` span."""
 
     def __init__(self, channels: int, attn_ratio: int = 8,
                  value_ratio: int = 2, dtype=torch.float32):
@@ -53,18 +54,19 @@ class NonLocalAttention2D(nn.Module):
         self.gamma = nn.Parameter(torch.zeros(()))
 
     def forward(self, x):
-        a, dt = self.attn_dim, self.dtype
-        w3 = torch.cat([self.wq.weight, self.wk.weight, self.wv.weight])
-        b3 = torch.cat([self.wq.bias, self.wk.bias, self.wv.bias])
-        qkv = F.linear(x.to(dt), w3.to(dt), b3.to(dt))
-        q, k, v = qkv[..., :a], qkv[..., a:2 * a], qkv[..., 2 * a:]
-        k, v = _max_pool_2x2(k), _max_pool_2x2(v)
-        logits = torch.einsum("nhwa,nija->nhwij", q.float(),
-                              k.float()).to(x.dtype)
-        weights = _softmax_f32_stats(logits, (-2, -1))
-        out = torch.einsum("nhwij,nijv->nhwv", weights, v)
-        out = torch.relu(self.bn(linear(out, self.out_proj, dt)))
-        return x + self.gamma.to(x.dtype) * out
+        with span("npvp.ae.nonlocal"):
+            a, dt = self.attn_dim, self.dtype
+            w3 = torch.cat([self.wq.weight, self.wk.weight, self.wv.weight])
+            b3 = torch.cat([self.wq.bias, self.wk.bias, self.wv.bias])
+            qkv = F.linear(x.to(dt), w3.to(dt), b3.to(dt))
+            q, k, v = qkv[..., :a], qkv[..., a:2 * a], qkv[..., 2 * a:]
+            k, v = _max_pool_2x2(k), _max_pool_2x2(v)
+            logits = torch.einsum("nhwa,nija->nhwij", q.float(),
+                                  k.float()).to(x.dtype)
+            weights = _softmax_f32_stats(logits, (-2, -1))
+            out = torch.einsum("nhwij,nijv->nhwv", weights, v)
+            out = torch.relu(self.bn(linear(out, self.out_proj, dt)))
+            return x + self.gamma.to(x.dtype) * out
 
 
 class NonLocalAttention1D(nn.Module):

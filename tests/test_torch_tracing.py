@@ -38,14 +38,24 @@ from npvp_tpu_torch.train.common import StepProfiler  # noqa: E402
 from npvp_tpu_torch.train.stage2_predictor import make_steps  # noqa: E402
 
 T = 8
+# the encoder's non-local attentions: one a ConvAttn block of the tiny AE
+# (n_downsampling − 1 + num_res_blocks), each inside its npvp.ae.encode
+NONLOCAL, NONLOCAL_CALLS = "npvp.ae.nonlocal", 3
 SERVE = {"npvp.serve.request", "npvp.ae.encode", "npvp.predictor",
          "npvp.predictor.nrmlp", "npvp.predictor.encoder",
-         "npvp.predictor.latent", "npvp.predictor.decoder", "npvp.ae.decode"}
+         "npvp.predictor.latent", "npvp.predictor.decoder", "npvp.ae.decode",
+         NONLOCAL}
 PREDICTOR_PARTS = {"npvp.predictor.nrmlp", "npvp.predictor.encoder",
                    "npvp.predictor.latent", "npvp.predictor.decoder"}
 TRAIN = {"npvp.train.step", "npvp.train.forward", "npvp.train.backward",
          "npvp.train.optimizer", "npvp.train.clip", "npvp.ae.encode",
-         "npvp.predictor", "npvp.ae.decode"} | PREDICTOR_PARTS
+         "npvp.predictor", "npvp.ae.decode", NONLOCAL} | PREDICTOR_PARTS
+
+
+def _counts_as_expected(by):
+    """One span a name, and one a non-local attention of the encoder."""
+    return all(len(v) == (NONLOCAL_CALLS if k == NONLOCAL else 1)
+               for k, v in by.items())
 
 
 def tiny_config(stochastic=True):
@@ -156,7 +166,7 @@ def test_the_spans_of_one_request_nest_and_share_its_root(vp, entry):
     tracing.disable()
     records = tracing.take()
     by = _by_name(records)
-    assert set(by) == SERVE and all(len(v) == 1 for v in by.values())
+    assert set(by) == SERVE and _counts_as_expected(by)
     root = _check_tree(records, "npvp.serve.request")
     parent = {r.name: r.parent for r in records}
     pred = by["npvp.predictor"][0].id
@@ -164,6 +174,7 @@ def test_the_spans_of_one_request_nest_and_share_its_root(vp, entry):
         assert parent[name] == root.id
     for name in PREDICTOR_PARTS:
         assert parent[name] == pred
+    assert {r.parent for r in by[NONLOCAL]} == {by["npvp.ae.encode"][0].id}
 
 
 def _train_program(seed=5):
@@ -196,7 +207,7 @@ def test_a_train_step_gives_its_phases():
     (place,) = by.pop("npvp.train.place")
     assert place.parent is None and place.root == place.id
     step_records = [r for r in records if r.name != "npvp.train.place"]
-    assert set(by) == TRAIN and all(len(v) == 1 for v in by.values())
+    assert set(by) == TRAIN and _counts_as_expected(by)
     root = _check_tree(step_records, "npvp.train.step")
     parent = {r.name: r.parent for r in step_records}
     for name in ("npvp.train.forward", "npvp.train.backward",
@@ -269,7 +280,8 @@ def test_a_span_starts_on_the_profilers_clock(vp):
     events = sorted(_annotations(prof), key=lambda e: e.start_ns())
     assert [r.name for r in records] == [e.name() for e in events]
     gaps = [abs(r.start_ns - e.start_ns()) for r, e in zip(records, events)]
-    assert len(gaps) == 2 * len(SERVE) and max(gaps) < 1e6, gaps
+    per_request = len(SERVE) - 1 + NONLOCAL_CALLS
+    assert len(gaps) == 2 * per_request and max(gaps) < 1e6, gaps
 
 
 def test_the_step_profilers_window_traces_the_spans(tmp_path):
