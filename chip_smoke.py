@@ -3,10 +3,10 @@
 
     python3 chip_smoke.py [--phases 1,2]
 
-Builds the temporal-attention and LayerNorm kernels from
-``npvp_tpu_torch/kernels/csrc`` with nvcc, then runs sixteen phases (all of
-them by default; ``--phases`` picks some, for a short check), each printing
-its own lines:
+Builds the temporal-attention, LayerNorm and non-local attention kernels
+from ``npvp_tpu_torch/kernels/csrc`` with nvcc, then runs seventeen phases
+(all of them by default; ``--phases`` picks some, for a short check), each
+printing its own lines:
 
 1. environment: the card's name and power limit, torch, CUDA, nvcc, the
    kernels' build times, ptxas' registers and spills, and the dynamic
@@ -182,6 +182,22 @@ its own lines:
    which the port never calls) and a copy of its input (the card's
    practical streaming rate), beside its byte bound (input and output
    once, the affine once), summed over the forward.
+17. the non-local attention kernel (the AE's ``NonLocalAttention2D``,
+   bf16): its calls in a Cityscapes window's encode (128 clips x 2 frames:
+   6, at 64², 32², 16² and three at 8²) and in a KTH batch-64 forward (4),
+   each on the call's own ``qkv``: the kernel held to its twin (at most
+   1e-3 of the elements beyond 2^-6 of their image's max|v|, none beyond
+   0.1 of it), kernel ms (CUDA-graph replays), the twin's and the
+   library's (``F.scaled_dot_product_attention`` with scale 1 on the pooled
+   k and v, which the port never calls) ms and gap to the twin, and the
+   bound (bytes and FLOPs), summed over the forward; logits exact in fp32
+   that reach |50| at the four levels, where the kernel stays within
+   2^-6·max|v| of its twin element for element; a Cityscapes encode with
+   open gates on the kernel path, the twin path and the library, each
+   against fp32 (the kernel path held as close as the twin path); a
+   Cityscapes window's encode on the kernel path and on the twin path (ms,
+   peak memory); no launch in a SMMNIST Unified NPVP-S train step as its
+   YAML stands (exec_mode xla).
 
 The phases run in a child process; this one exits with its code once every
 process the run started has ended (see ``supervise``). Any failure exits
@@ -405,6 +421,14 @@ def phase_environment(torch, ta):
           f"{ln.BUILD_INFO.get('seconds', 0.0):.1f} s -> "
           f"{Path(lib).relative_to(HERE)}")
     for line in ln.BUILD_INFO.get("ptxas", []):
+        print("  " + line)
+    from npvp_tpu_torch.kernels import nonlocal_attention as nla
+
+    lib = nla.build()
+    print(f"non-local kernel build: "
+          f"{nla.BUILD_INFO.get('seconds', 0.0):.1f} s -> "
+          f"{Path(lib).relative_to(HERE)}")
+    for line in nla.BUILD_INFO.get("ptxas", []):
         print("  " + line)
     for name, _, Tq, Tk, _, _ in SITES[:2]:
         for fuse in (True, False):
@@ -3763,12 +3787,380 @@ def phase_layer_norm(torch, ta):
     return result
 
 
+def _nonlocal_calls(torch, fn):
+    """The non-local attention kernel's calls as ``fn`` makes them: each
+    call's ``qkv`` (a copy) and ``attn_dim``."""
+    from npvp_tpu_torch.kernels import nonlocal_attention as nla
+
+    calls, real = [], nla.launch
+
+    def recording(qkv, attn_dim):
+        calls.append((qkv.clone(), attn_dim))
+        return real(qkv, attn_dim)
+
+    nla.launch = recording
+    try:
+        with torch.no_grad():
+            fn()
+        torch.cuda.synchronize()
+    finally:
+        nla.launch = real
+    return calls
+
+
+def _nonlocal_library(torch, qkv, a):
+    """The library's attention on the kernel's input, as a yardstick the
+    port never calls: ``F.scaled_dot_product_attention`` with scale 1 on q
+    and the 2x2-pooled k and v; (N, H, W, dv)."""
+    import torch.nn.functional as F
+
+    from npvp_tpu_torch.kernels import nonlocal_attention as nla
+
+    N, H, W, C3 = qkv.shape
+    dv, keys = C3 - 2 * a, (H // 2) * (W // 2)
+    q = qkv[..., :a].reshape(N, 1, H * W, a)
+    k = nla.max_pool_2x2(qkv[..., a:2 * a]).reshape(N, 1, keys, a)
+    v = nla.max_pool_2x2(qkv[..., 2 * a:]).reshape(N, 1, keys, dv)
+    return F.scaled_dot_product_attention(q, k, v, scale=1.0).reshape(
+        N, H, W, dv)
+
+
+def _nonlocal_twin(torch, qkv, a):
+    """The twin with its P·V summed in fp32 (cuBLAS' reduced-precision bf16
+    reductions off), as the CUDA tests' bound assumes."""
+    from npvp_tpu_torch.kernels import nonlocal_attention as nla
+
+    mm = torch.backends.cuda.matmul
+    flag = mm.allow_bf16_reduced_precision_reduction
+    mm.allow_bf16_reduced_precision_reduction = False
+    try:
+        return nla.nonlocal_attention_plain(qkv, a)
+    finally:
+        mm.allow_bf16_reduced_precision_reduction = flag
+
+
+def _nonlocal_gap(torch, got, want, qkv, a):
+    """(largest |got - want| over its image's max|v|, share of elements
+    beyond 2^-6 of it): the CUDA tests' measure. Where the kernel and the
+    twin round the same bf16 logits they differ by at most 2^-6·max|v| (the
+    one reordering: the kernel divides the P·V sum by the row sum where the
+    twin rounds each divided weight)."""
+    vmax = qkv[..., 2 * a:].float().abs().amax(dim=(1, 2, 3))[
+        :, None, None, None]
+    rel = (got.float() - want.float()).abs() / vmax
+    return float(rel.max()), float((rel > 2 ** -6).float().mean())
+
+
+def _nonlocal_timing(torch, calls, what):
+    """Each call of a forward timed for the kernel (CUDA-graph replays),
+    its twin, and the library (SDPA with scale 1 on the pooled k and v,
+    which the port never calls), beside its bound (bytes: qkv read and the
+    output written once; FLOPs: Q·K^T and P·V); the kernel held to its
+    twin by the CUDA tests' tolerance (at most 1e-3 of the elements beyond
+    2^-6·max|v| of their image, none beyond 0.1·max|v|: tensor cores and
+    cuBLAS sum the logits in other orders, and a rare logit rounds to the
+    neighbouring bf16 value), the library's gap read beside it; summed
+    over the forward."""
+    from npvp_tpu_torch.kernels import nonlocal_attention as nla
+
+    total = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+                 launches=0, max_abs=0.0, max_rel=0.0, share_over=0.0,
+                 library_max_rel=0.0, library_share_over=0.0, per_call=[])
+    for qkv, a in calls:
+        N, H, W, C3 = qkv.shape
+        dv, keys = C3 - 2 * a, (H // 2) * (W // 2)
+        saved = dict(nla.LAUNCHES)
+        with torch.no_grad():
+            got = nla.launch(qkv, a)
+            want = _nonlocal_twin(torch, qkv, a)
+            lib = _nonlocal_library(torch, qkv, a)
+            gap = float((got.float() - want.float()).abs().max())
+            vmax = float(qkv[..., 2 * a:].float().abs().max())
+            rel, over = _nonlocal_gap(torch, got, want, qkv, a)
+            lib_rel, lib_over = _nonlocal_gap(torch, lib, want, qkv, a)
+            del got, want, lib
+            k_ms = time_graph(torch, lambda: nla.launch(qkv, a))
+            p_ms = time_call(torch, lambda: nla.nonlocal_attention_plain(
+                qkv, a), n=3)
+            l_ms = time_call(torch, lambda: _nonlocal_library(torch, qkv, a),
+                             n=10)
+        nla.LAUNCHES.clear()
+        nla.LAUNCHES.update(saved)  # timing is not the path's run
+        nbytes = N * H * W * (C3 + dv) * 2
+        flops = 2 * N * H * W * keys * (a + dv)
+        bound = max(nbytes / PEAK_BYTES_S, flops / PEAK_FLOPS["bfloat16"])
+        bound *= 1e3
+        print(f"{what} {N} x {H}x{W} (a {a}, dv {dv}, {keys} keys): kernel "
+              f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, library {l_ms:.4f} ms, "
+              f"bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB, "
+              f"{flops / 1e9:.1f} GFLOP), kernel/bound {k_ms / bound:.2f}, "
+              f"{N * H * W * keys / 1e9:.3f} G logits; max|d| to the twin "
+              f"{gap:.3e} (max|v| {vmax:.3g}); over its image's max|v|: "
+              f"kernel max {rel:.3e}, share beyond 2^-6 {over:.2e}; "
+              f"library max {lib_rel:.3e}, share beyond 2^-6 {lib_over:.2e}")
+        check(over <= 1e-3 and rel <= 0.1,
+              f"{what} {H}x{W}: the kernel is off its twin by up to "
+              f"{rel:.3e} of max|v| ({over:.2e} of the elements beyond "
+              f"2^-6): tolerance 1e-3 beyond 2^-6, none beyond 0.1")
+        total["launches"] += 1
+        total["ms"] += k_ms
+        total["plain_ms"] += p_ms
+        total["library_ms"] += l_ms
+        total["bound_ms"] += bound
+        total["max_abs"] = max(total["max_abs"], gap)
+        total["max_rel"] = max(total["max_rel"], rel)
+        total["share_over"] = max(total["share_over"], over)
+        total["library_max_rel"] = max(total["library_max_rel"], lib_rel)
+        total["library_share_over"] = max(total["library_share_over"],
+                                          lib_over)
+        total["per_call"].append(dict(
+            shape=[N, H, W, C3], attn_dim=a, ms=k_ms, plain_ms=p_ms,
+            library_ms=l_ms, bound_ms=bound, max_abs=gap, max_v=vmax,
+            max_rel=rel, share_over=over, library_max_rel=lib_rel,
+            library_share_over=lib_over))
+    print(f"{what}: non-local kernel {total['ms']:.3f} ms against its bound "
+          f"{total['bound_ms']:.3f} ms; plain twin {total['plain_ms']:.3f} "
+          f"ms, library {total['library_ms']:.3f} ms; max|d| "
+          f"{total['max_abs']:.3e}; over max|v|: kernel "
+          f"{total['max_rel']:.3e}, library {total['library_max_rel']:.3e}")
+    return total
+
+
+def _nonlocal_exact(torch):
+    """The rounding contract where it bites: q and k on a grid of quarters
+    (every logit exact in fp32, whatever the order of its sums) at the four
+    levels of the AEs (6 images each), so that rows reach |logit| >= 50,
+    where one bf16 ulp of a logit moves its weight by ~28 %. The kernel
+    rounds the same logits as its twin and stays within 2^-6·max|v| of it
+    element for element; the library (fp32 logits) is read beside it."""
+    from npvp_tpu_torch.kernels import nonlocal_attention as nla
+
+    out = []
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    for H, C in ((64, 64), (32, 128), (16, 256), (8, 512)):
+        a, dv = C // 8, C // 2
+        q = torch.randint(-24, 25, (6, H, H, a), generator=gen,
+                          device="cuda") / 4
+        k = torch.randint(-8, 9, (6, H, H, a), generator=gen,
+                          device="cuda") / 4
+        v = torch.randn((6, H, H, dv), generator=gen, device="cuda")
+        qkv = torch.cat([q, k, v], -1).to(torch.bfloat16)
+        with torch.no_grad():
+            reach = float(torch.einsum(
+                "nhwa,nija->nhwij", qkv[:1, ..., :a].float(),
+                nla.max_pool_2x2(qkv[:1, ..., a:2 * a]).float()).abs().max())
+            want = _nonlocal_twin(torch, qkv, a)
+            rel, over = _nonlocal_gap(torch, nla.launch(qkv, a), want, qkv,
+                                      a)
+            lib_rel, lib_over = _nonlocal_gap(
+                torch, _nonlocal_library(torch, qkv, a), want, qkv, a)
+        print(f"exact logits {H}x{H} (a {a}, dv {dv}), max|logit| {reach:g}: "
+              f"over max|v|, kernel max {rel:.3e} (share beyond 2^-6 "
+              f"{over:.2e}), library max {lib_rel:.3e} (share beyond 2^-6 "
+              f"{lib_over:.2e})")
+        check(reach >= 50, f"exact logits {H}x{H} reach only {reach}")
+        check(rel <= 2 ** -6, f"exact logits {H}x{H}: the kernel is off its "
+              f"twin by {rel:.3e} of max|v|, beyond 2^-6")
+        out.append(dict(H=H, channels=C, max_logit=reach, max_rel=rel,
+                        library_max_rel=lib_rel,
+                        library_share_over=lib_over))
+    return out
+
+
+def _nonlocal_encode_paths(torch, clips):
+    """A Cityscapes encode (``clips`` x 2 frames at 128²) on the kernel
+    path, the twin path and the library in the kernel's place, each against
+    the fp32 encode on the same weights (random, with the attentions' gates
+    open and their batch statistics away from their init, so that the
+    attentions reach the output), by relative norm; held as the CUDA tests
+    hold it: the kernel path no further from fp32 than the twin path
+    within a quarter, and within twice that of the twin path."""
+    from npvp_tpu_torch.kernels import nonlocal_attention as nla
+    from npvp_tpu_torch.nn import resnet_ae as tae
+    from npvp_tpu_torch.tools.weights import random_init
+
+    cfg = smoke_config("Cityscapes_VFP_NPVP-S", ["Predictor.exec_mode=pallas"])
+    d = cfg.Dataset
+    ae32 = random_init(tae.build_ae(cfg, torch.float32), 11)
+    g = torch.Generator().manual_seed(12)
+    with torch.no_grad():
+        for m in ae32.modules():
+            if isinstance(m, tae.NonLocalAttention2D):
+                m.gamma.fill_(0.5)
+                c = m.bn.running_mean.numel()
+                m.bn.running_mean.copy_(0.1 * torch.randn(c, generator=g))
+                m.bn.running_var.copy_(1 + 0.2 * torch.rand(c, generator=g))
+    ae16 = tae.build_ae(cfg, torch.bfloat16)
+    ae16.load_state_dict(ae32.state_dict())
+    ae16, ae32 = (m.to("cuda").eval().requires_grad_(False)
+                  for m in (ae16, ae32))
+    modules = [m for m in ae16.modules()
+               if isinstance(m, tae.NonLocalAttention2D)]
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    x = torch.rand((clips, 2, d.img_size, d.img_size, d.img_channels),
+                   generator=gen, device="cuda") * 2 - 1
+    mm = torch.backends.cuda.matmul
+    flag = mm.allow_bf16_reduced_precision_reduction
+    mm.allow_bf16_reduced_precision_reduction = False
+    real = nla.launch
+    try:
+        with torch.no_grad():
+            paths = {"kernel": ae16.encode(x).float()}
+            for m in modules:
+                m.exec_mode = "xla"
+            paths["twin"] = ae16.encode(x).float()
+            for m in modules:
+                m.exec_mode = "pallas"
+            nla.launch = lambda qkv, a: _nonlocal_library(torch, qkv, a)
+            paths["library"] = ae16.encode(x).float()
+            nla.launch = real
+            exact = ae32.encode(x)
+    finally:
+        nla.launch = real
+        mm.allow_bf16_reduced_precision_reduction = flag
+
+    def rel(u, w):
+        return float((u - w).norm() / w.norm())
+
+    errs = {k: rel(v, exact) for k, v in paths.items()}
+    kt = rel(paths["kernel"], paths["twin"])
+    print(f"Cityscapes encode ({clips} x 2 frames, gates open) against fp32, "
+          f"relative norm: kernel path {errs['kernel']:.4e}, twin path "
+          f"{errs['twin']:.4e}, library in the kernel's place "
+          f"{errs['library']:.4e}; kernel path against twin path {kt:.4e}, "
+          f"library against twin path "
+          f"{rel(paths['library'], paths['twin']):.4e}")
+    check(errs["kernel"] <= 1.25 * errs["twin"] + 1e-4,
+          f"the kernel path's encode is {errs['kernel']:.4e} from fp32, the "
+          f"twin path's {errs['twin']:.4e}")
+    check(kt < 2 * errs["twin"] + 1e-4,
+          f"the kernel path's encode is {kt:.4e} from the twin path's")
+    return dict(rel_to_fp32=errs, kernel_to_twin=kt,
+                library_to_twin=rel(paths["library"], paths["twin"]))
+
+
+def phase_nonlocal(torch, ta):
+    """The non-local attention kernel at the main path's shapes: its calls
+    in a Cityscapes window's encode (128 clips x 2 frames) and in a KTH
+    batch-64 forward, held to the twin and timed against it, the library
+    and the bound; the rounding contract at exact logits that reach |50|;
+    a Cityscapes encode with open gates on the kernel path held against
+    the twin path and fp32; a Cityscapes window's encode on the kernel and
+    the twin path (ms, peak memory); no launch in a SMMNIST Unified NPVP-S train step as its YAML
+    stands (exec_mode xla)."""
+    import numpy as np
+
+    from npvp_tpu_torch.data.loader import DataModule
+    from npvp_tpu_torch.kernels import nonlocal_attention as nla
+    from npvp_tpu_torch.models.inference import VideoPredictor
+    from npvp_tpu_torch.models.predictor import build_predictor
+    from npvp_tpu_torch.nn.layers import Rng
+    from npvp_tpu_torch.nn.resnet_ae import NonLocalAttention2D
+    from npvp_tpu_torch.train import stage2_predictor as s2
+
+    result = {}
+    cfg = smoke_config("Cityscapes_VFP_NPVP-S", ["Predictor.exec_mode=pallas"])
+    d = cfg.Dataset
+    vp = VideoPredictor.from_random_init(cfg, torch.bfloat16, seed=0,
+                                         device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    frames = torch.rand((128, 2, d.img_size, d.img_size, d.img_channels),
+                        generator=gen, device="cuda") * 2 - 1
+    nla.LAUNCHES.clear()
+    calls = _nonlocal_calls(torch, lambda: vp.ae.encode(frames))
+    window = dict(nla.LAUNCHES)
+    print(f"Cityscapes window encode (128 x 2 frames): launches {window}")
+    check(window == {4096: 1, 1024: 1, 256: 1, 64: 3},
+          f"a Cityscapes window's encode made {window}, not 6 calls")
+    result["cityscapes"] = _nonlocal_timing(torch, calls, "Cityscapes")
+    result["cityscapes"]["launches_per_window"] = sum(window.values())
+    del calls
+    result["exact_logits"] = _nonlocal_exact(torch)
+    result["encode_paths"] = _nonlocal_encode_paths(torch, 16)
+    modules = [m for m in vp.ae.modules()
+               if isinstance(m, NonLocalAttention2D)]
+    encode = {}
+    for mode in ("pallas", "xla", "pallas", "xla"):
+        for m in modules:
+            m.exec_mode = mode
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        with torch.no_grad():
+            ms = time_call(torch, lambda: vp.ae.encode(frames), n=5)
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        encode.setdefault(mode, []).append((ms, peak))
+    for mode, runs in encode.items():
+        print(f"Cityscapes window encode on the "
+              f"{'kernel' if mode == 'pallas' else 'twin'} path: "
+              f"{[round(ms, 3) for ms, _ in runs]} ms, peak above the "
+              f"weights {[round(g, 3) for _, g in runs]} GiB")
+    result["cityscapes"]["encode_ms"] = {
+        ("kernel" if k == "pallas" else "twin"): min(ms for ms, _ in v)
+        for k, v in encode.items()}
+    result["cityscapes"]["encode_peak_gib"] = {
+        ("kernel" if k == "pallas" else "twin"): max(g for _, g in v)
+        for k, v in encode.items()}
+    del vp, modules
+    torch.cuda.empty_cache()
+
+    cfg = smoke_config("KTH_Unified_NPVP-S", ["Predictor.exec_mode=pallas"])
+    p, d = cfg.Predictor, cfg.Dataset
+    vp = VideoPredictor.from_random_init(cfg, torch.bfloat16, seed=0,
+                                         device="cuda")
+    fn = vp.freeze_task(np.arange(10), np.arange(10, 20))
+    frames = torch.rand((64, 10, d.img_size, d.img_size, d.img_channels),
+                        generator=gen, device="cuda") * 2 - 1
+    eps = torch.randn((64, p.max_H, p.max_W, p.embed_dim), generator=gen,
+                      device="cuda")
+    nla.LAUNCHES.clear()
+    calls = _nonlocal_calls(torch, lambda: fn(frames, eps=eps))
+    forward = dict(nla.LAUNCHES)
+    print(f"KTH forward (batch 64, 10 -> 10): launches {forward}")
+    check(forward == {1024: 1, 256: 1, 64: 2},
+          f"a KTH forward made {forward}, not 4 calls")
+    result["kth"] = _nonlocal_timing(torch, calls, "KTH")
+    result["kth"]["launches_per_forward"] = sum(forward.values())
+    del calls, vp, fn
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = smoke_config("SMMNIST_Unified_NPVP-S", [
+            f"Predictor.ckpt_save_dir={tmp}/ckpt",
+            f"Predictor.tensorboard_save_dir={tmp}/log",
+            "Dataset.dev_set_size=8"])
+        cfg.Predictor.resume_AE_ckpt = str(s2.write_random_ae(cfg, tmp))
+        dtype, dev = s2.compute_dtype(cfg), torch.device("cuda")
+        ae = s2.load_frozen_ae(cfg, dtype, dev)
+        steps = s2.make_steps(cfg, ae, "rand_context", dev)
+        state = s2.init_predictor_state(
+            cfg, build_predictor(cfg, dtype).to(dev), 1)
+        batch = steps.place(next(iter(DataModule(cfg).train_loader(
+            "rand_context"))))
+        before = sum(nla.LAUNCHES.values())
+        steps.train(state, batch, Rng(1))
+        torch.cuda.synchronize()
+        train = sum(nla.LAUNCHES.values()) - before
+    print(f"SMMNIST Unified NPVP-S train step (exec_mode "
+          f"{cfg.Predictor.exec_mode}): {train} non-local launches")
+    check(train == 0, f"a SMMNIST train step made {train} non-local calls")
+    result["smmnist_train_step_launches"] = train
+    print("nonlocal " + json.dumps({
+        **{k: {key: result[k][key] for key in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "max_abs", "max_rel",
+            "share_over", "library_max_rel", "library_share_over",
+            "launches")} for k in ("cityscapes", "kth")},
+        "exact_logits": result["exact_logits"],
+        "encode_paths": result["encode_paths"]}))
+    return result
+
+
 def main(argv) -> int:
     import argparse
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases", help="comma-separated phase numbers "
-                        "(1-15) for a short check; the default runs all and "
+                        "(1-17) for a short check; the default runs all and "
                         "prints the record")
     args = parser.parse_args(argv)
     picked = (None if args.phases is None
@@ -3815,7 +4207,8 @@ def main(argv) -> int:
               ("SMMNIST stream, config generator", phase_smmnist_stream),
               ("report tools", phase_reports),
               ("checkpoints", phase_checkpoints),
-              ("layer-norm kernel", phase_layer_norm)]
+              ("layer-norm kernel", phase_layer_norm),
+              ("non-local attention kernel", phase_nonlocal)]
     if picked is not None:
         phases = [ph for i, ph in enumerate(phases, 1) if i in picked]
     WORK["dir"] = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -3953,6 +4346,26 @@ def main(argv) -> int:
                                                 "bound_ms", "library_ms")},
         "times": "per flagship forward: the sum over its 126 calls, bf16",
         "per_call": norms["b64"]["per_call"]})
+    nl = results["non-local attention kernel"]
+    city, kth = nl["cityscapes"], nl["kth"]
+    kernels.append({
+        "name": "nonlocal_attention", "route": "cuda",
+        "source": "npvp_tpu_torch/kernels/csrc/nonlocal_attention.cu",
+        "replaces": None, "launches": city["launches_per_window"],
+        "max_abs_err": max(city["max_abs"], kth["max_abs"]),
+        **{k: city[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+        "encode_ms": city["encode_ms"],
+        "encode_peak_gib": city["encode_peak_gib"],
+        "kth_forward": {"launches": kth["launches_per_forward"],
+                        **{k: kth[k] for k in ("ms", "plain_ms", "bound_ms",
+                                               "library_ms")}},
+        "smmnist_train_step_launches":
+            nl["smmnist_train_step_launches"],
+        "exact_logits": nl["exact_logits"],
+        "encode_paths": nl["encode_paths"],
+        "times": "per Cityscapes window's encode (128 clips x 2 frames): "
+                 "the sum over its 6 calls, bf16",
+        "per_call": city["per_call"] + kth["per_call"]})
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

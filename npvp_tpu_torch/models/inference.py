@@ -95,10 +95,10 @@ class VideoPredictor:
         uninitialised (built on the meta device), for a caller that loads
         every parameter and buffer (the loaders raise on a missing one)."""
         if not empty:
-            return build_ae(cfg, dtype), build_predictor(cfg, dtype,
-                                                         exec_mode)
+            return (build_ae(cfg, dtype, exec_mode),
+                    build_predictor(cfg, dtype, exec_mode))
         with torch.device("meta"):
-            ae, predictor = (build_ae(cfg, dtype),
+            ae, predictor = (build_ae(cfg, dtype, exec_mode),
                              build_predictor(cfg, dtype, exec_mode))
         return ae.to_empty(device="cpu"), predictor.to_empty(device="cpu")
 

@@ -144,6 +144,15 @@ def scaled_dot_product_attention(q, k, v, mask=None, dropout_rate=0.0,
     return torch.einsum("...hqk,...khd->...qhd", weights, v)
 
 
+def softmax_f32_stats(logits, dims):
+    """Softmax reading and writing ``logits`` in its own dtype with fp32
+    exponent and sum (the subtraction of the max happens in that dtype): the
+    AE's non-local attentions, whose logits are unscaled."""
+    lmax = logits.amax(dim=dims, keepdim=True)
+    e = torch.exp((logits - lmax).float())
+    return (e / e.sum(dim=dims, keepdim=True)).to(logits.dtype)
+
+
 def linear(x, layer: nn.Linear, dtype, quant: bool = False, sp=None):
     """``x @ W + b`` in the compute dtype, W and b cast from float32; with
     ``quant`` the product is the dynamic int8 one

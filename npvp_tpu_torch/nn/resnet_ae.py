@@ -11,41 +11,38 @@ direct 7×7 head (``npvp_tpu_torch.nn.upsample``).
 from __future__ import annotations
 
 import warnings
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from npvp_tpu_torch.core.tracing import span
+from npvp_tpu_torch.kernels import nonlocal_attention as nla
 from npvp_tpu_torch.nn.layers import (BatchNorm, ConvBNAct, conv_nhwc,
-                                      linear, reflect_pad_2d)
+                                      linear, reflect_pad_2d,
+                                      softmax_f32_stats)
 from npvp_tpu_torch.nn.upsample import (subpixel_conv_same,
                                         subpixel_conv_transpose_3x3_s2)
-
-
-def _softmax_f32_stats(logits, dims):
-    """Softmax reading and writing ``logits`` in its own dtype with fp32
-    exponent and sum (the subtraction of the max happens in that dtype)."""
-    lmax = logits.amax(dim=dims, keepdim=True)
-    e = torch.exp((logits - lmax).float())
-    return (e / e.sum(dim=dims, keepdim=True)).to(logits.dtype)
-
-
-def _max_pool_2x2(x):
-    return F.max_pool2d(x.permute(0, 3, 1, 2), 2, 2).permute(0, 2, 3, 1)
 
 
 class NonLocalAttention2D(nn.Module):
     """Global spatial attention with 2×2 max-pooled keys/values and a
     zero-initialised residual gate ``gamma``; logits are unscaled (SAGAN
     convention) and kept in the compute dtype with fp32 softmax statistics.
-    Each call is one ``npvp.ae.nonlocal`` span."""
+    Each call is one ``npvp.ae.nonlocal`` span. On the kernel path
+    (:meth:`kernel_path`) the hand-written kernel
+    (``kernels/nonlocal_attention.py``) computes the attention between the
+    fused projection and ``out_proj``; elsewhere its plain twin, the eager
+    code, does. ``exec_mode`` is a plain attribute, not state."""
 
     def __init__(self, channels: int, attn_ratio: int = 8,
-                 value_ratio: int = 2, dtype=torch.float32):
+                 value_ratio: int = 2, dtype=torch.float32,
+                 exec_mode: str = "xla"):
         super().__init__()
         C = channels
         self.attn_dim, self.dtype = C // attn_ratio, dtype
+        self.exec_mode = exec_mode
         self.wq = nn.Linear(C, C // attn_ratio)
         self.wk = nn.Linear(C, C // attn_ratio)
         self.wv = nn.Linear(C, C // value_ratio)
@@ -59,14 +56,23 @@ class NonLocalAttention2D(nn.Module):
             w3 = torch.cat([self.wq.weight, self.wk.weight, self.wv.weight])
             b3 = torch.cat([self.wq.bias, self.wk.bias, self.wv.bias])
             qkv = F.linear(x.to(dt), w3.to(dt), b3.to(dt))
-            q, k, v = qkv[..., :a], qkv[..., a:2 * a], qkv[..., 2 * a:]
-            k, v = _max_pool_2x2(k), _max_pool_2x2(v)
-            logits = torch.einsum("nhwa,nija->nhwij", q.float(),
-                                  k.float()).to(x.dtype)
-            weights = _softmax_f32_stats(logits, (-2, -1))
-            out = torch.einsum("nhwij,nijv->nhwv", weights, v)
+            if self.kernel_path(qkv):
+                out = nla.nonlocal_attention(qkv, a)
+            else:
+                out = nla.nonlocal_attention_plain(qkv, a)
             out = torch.relu(self.bn(linear(out, self.out_proj, dt)))
             return x + self.gamma.to(x.dtype) * out
+
+    def kernel_path(self, qkv) -> bool:
+        """``exec_mode "pallas"``, eval mode, a bf16 tensor on a device of
+        ``nla.DEVICES`` (CUDA) that needs no gradient. The rest (stage-1
+        training, the xla and int8 modes, fp32, the CPU) runs the twin,
+        which the JAX parity tests hold. A shape the kernel does not take
+        raises in the kernel's wrapper: it does not fall back."""
+        return (self.exec_mode == "pallas" and not self.training
+                and qkv.dtype == torch.bfloat16
+                and qkv.device.type in nla.DEVICES
+                and not (torch.is_grad_enabled() and qkv.requires_grad))
 
 
 class NonLocalAttention1D(nn.Module):
@@ -93,7 +99,7 @@ class NonLocalAttention1D(nn.Module):
                                                        self.wv))
         logits = torch.einsum("btc,bsc->bts", q.float(),
                               k.float()).to(x.dtype)
-        weights = _softmax_f32_stats(logits, (-1,))
+        weights = softmax_f32_stats(logits, (-1,))
         out = linear(torch.einsum("bts,bsc->btc", weights, v),
                      self.out_proj, dt)
         out = torch.relu(self.bn(out))
@@ -107,12 +113,13 @@ class Factorized3DConvAttn(nn.Module):
     site's T frames; residual around the whole block."""
 
     def __init__(self, channels: int, learn_3d: bool = False,
-                 dtype=torch.float32):
+                 dtype=torch.float32, exec_mode: str = "xla"):
         super().__init__()
         self.learn_3d, self.dtype = learn_3d, dtype
         self.spatial_conv = ConvBNAct(channels, channels, 3, use_bias=True,
                                       dtype=dtype)
-        self.attn2d = NonLocalAttention2D(channels, dtype=dtype)
+        self.attn2d = NonLocalAttention2D(channels, dtype=dtype,
+                                          exec_mode=exec_mode)
         if learn_3d:
             self.temporal_conv = nn.Conv1d(channels, channels, 3, padding=1)
             self.temporal_bn = BatchNorm(channels, eps=1e-5, dtype=dtype)
@@ -151,11 +158,13 @@ class ResnetBlock(nn.Module):
 
 class ResnetEncoder(nn.Module):
     """Frames (N, T, H, W, C_img) → ReLU'd features (N, T, H', W',
-    ngf·2^n_downsampling)."""
+    ngf·2^n_downsampling). ``exec_mode`` goes to the non-local
+    attentions."""
 
     def __init__(self, img_channels: int = 1, ngf: int = 64,
                  n_downsampling: int = 3, num_res_blocks: int = 2,
-                 learn_3d: bool = False, dtype=torch.float32):
+                 learn_3d: bool = False, dtype=torch.float32,
+                 exec_mode: str = "xla"):
         super().__init__()
         self.dtype = dtype
         self.n_downsampling, self.num_res_blocks = (n_downsampling,
@@ -165,14 +174,14 @@ class ResnetEncoder(nn.Module):
         self.block1 = ConvBNAct(ngf, ngf * 2, 3, stride=2, dtype=dtype)
         c = ngf * 2
         for i in range(1, n_downsampling):
-            self.add_module(f"block{i + 1}_attn",
-                            Factorized3DConvAttn(c, learn_3d, dtype=dtype))
+            self.add_module(f"block{i + 1}_attn", Factorized3DConvAttn(
+                c, learn_3d, dtype=dtype, exec_mode=exec_mode))
             self.add_module(f"block{i + 1}_conv",
                             ConvBNAct(c, c * 2, 3, stride=2, dtype=dtype))
             c *= 2
         for i in range(num_res_blocks):
-            self.add_module(f"res_attn_{i}",
-                            Factorized3DConvAttn(c, learn_3d, dtype=dtype))
+            self.add_module(f"res_attn_{i}", Factorized3DConvAttn(
+                c, learn_3d, dtype=dtype, exec_mode=exec_mode))
             self.add_module(f"res_conv_{i}", ResnetBlock(c, dtype=dtype))
 
     def forward(self, x):
@@ -248,15 +257,18 @@ class ResnetDecoder(nn.Module):
 
 
 class FrameAutoEncoder(nn.Module):
-    """Encoder + decoder pair (``encoder``/``decoder`` as in flax)."""
+    """Encoder + decoder pair (``encoder``/``decoder`` as in flax);
+    ``exec_mode`` goes to the encoder's non-local attentions."""
 
     def __init__(self, img_channels: int = 1, ngf: int = 64,
                  n_downsampling: int = 3, num_res_blocks: int = 2,
                  out_layer: str = "Tanh", learn_3d: bool = False,
-                 s2d_head: bool = False, dtype=torch.float32):
+                 s2d_head: bool = False, dtype=torch.float32,
+                 exec_mode: str = "xla"):
         super().__init__()
         self.encoder = ResnetEncoder(img_channels, ngf, n_downsampling,
-                                     num_res_blocks, learn_3d, dtype=dtype)
+                                     num_res_blocks, learn_3d, dtype=dtype,
+                                     exec_mode=exec_mode)
         self.decoder = ResnetDecoder(img_channels, ngf, n_downsampling,
                                      out_layer, s2d_head=s2d_head,
                                      dtype=dtype)
@@ -274,10 +286,15 @@ class FrameAutoEncoder(nn.Module):
             return self.decoder(feats)
 
 
-def build_ae(cfg, dtype=torch.float32) -> FrameAutoEncoder:
-    """FrameAutoEncoder from a Config."""
+def build_ae(cfg, dtype=torch.float32,
+             exec_mode: Optional[str] = None) -> FrameAutoEncoder:
+    """FrameAutoEncoder from a Config; ``exec_mode`` overrides
+    ``cfg.Predictor.exec_mode`` as in ``build_predictor`` ("pallas": the
+    non-local attentions' kernel in eval mode)."""
     return FrameAutoEncoder(
         img_channels=cfg.Dataset.img_channels, ngf=cfg.AE.ngf,
         n_downsampling=cfg.AE.n_downsampling,
         num_res_blocks=cfg.AE.num_res_blocks, out_layer=cfg.AE.out_layer,
-        learn_3d=cfg.AE.learn_3d, s2d_head=cfg.AE.s2d_head, dtype=dtype)
+        learn_3d=cfg.AE.learn_3d, s2d_head=cfg.AE.s2d_head, dtype=dtype,
+        exec_mode=(exec_mode if exec_mode is not None
+                   else cfg.Predictor.exec_mode))
