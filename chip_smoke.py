@@ -409,27 +409,16 @@ def phase_environment(torch, ta):
     nvcc = subprocess.run([nvcc_path(), "--version"], capture_output=True,
                           text=True, timeout=60)
     print("nvcc:", nvcc.stdout.strip().splitlines()[-1])
-    lib = ta.build()
-    print(f"kernel build: {ta.BUILD_INFO.get('seconds', 0.0):.1f} s -> "
-          f"{Path(lib).relative_to(HERE)}")
-    for line in ta.BUILD_INFO.get("ptxas", []):
-        print("  " + line)
     from npvp_tpu_torch.kernels import layer_norm as ln
-
-    lib = ln.build()
-    print(f"layer-norm kernel build: "
-          f"{ln.BUILD_INFO.get('seconds', 0.0):.1f} s -> "
-          f"{Path(lib).relative_to(HERE)}")
-    for line in ln.BUILD_INFO.get("ptxas", []):
-        print("  " + line)
     from npvp_tpu_torch.kernels import nonlocal_attention as nla
 
-    lib = nla.build()
-    print(f"non-local kernel build: "
-          f"{nla.BUILD_INFO.get('seconds', 0.0):.1f} s -> "
-          f"{Path(lib).relative_to(HERE)}")
-    for line in nla.BUILD_INFO.get("ptxas", []):
-        print("  " + line)
+    for what, mod in (("kernel", ta), ("layer-norm kernel", ln),
+                      ("non-local kernel", nla)):
+        lib = mod.LIB.build()
+        print(f"{what} build: {mod.LIB.info.get('seconds', 0.0):.1f} s -> "
+              f"{Path(lib).relative_to(HERE)}")
+        for line in mod.LIB.info.get("ptxas", []):
+            print("  " + line)
     for name, _, Tq, Tk, _, _ in SITES[:2]:
         for fuse in (True, False):
             print(f"dynamic shared memory per block, bf16 "
@@ -607,17 +596,11 @@ def phase_flagship(torch, ta):
     eps = torch.randn((64, p.max_H, p.max_W, p.embed_dim), generator=gen,
                       device="cuda")
     to, tp = np.arange(10), np.arange(10, 20)
-    runs = {"kernel_oproj": (kernel_vp.freeze_task(to, tp), True),
-            "kernel_attn": (kernel_vp.freeze_task(to, tp), False),
-            "plain": (plain_vp.freeze_task(to, tp), True)}
+    runs = {"kernel_oproj": kernel_vp.freeze_task(to, tp),
+            "plain": plain_vp.freeze_task(to, tp)}
 
     def forward(name):
-        fn, fuse = runs[name]
-        ta.FUSE_OPROJ = fuse
-        try:
-            return fn(frames, eps=eps)
-        finally:
-            ta.FUSE_OPROJ = True
+        return runs[name](frames, eps=eps)
 
     from npvp_tpu_torch.kernels import layer_norm as ln
 
@@ -634,27 +617,24 @@ def phase_flagship(torch, ta):
               f"layer-norm launches {norms[name]}")
     check(launches["kernel_oproj"] == {"oproj": 32, "attn": 0},
           "the fused kernel must serve all 32 attention calls")
-    check(launches["kernel_attn"] == {"oproj": 0, "attn": 32},
-          "the attention-only kernel must serve all 32 attention calls")
     check(launches["plain"] == {"oproj": 0, "attn": 0},
           "the plain path launched a kernel")
-    for name in ("kernel_oproj", "kernel_attn"):
-        check(norms[name] == {"hwc": 60, "token": 66},
-              f"{name}: the layer-norm kernel must serve all 126 norms")
+    check(norms["kernel_oproj"] == {"hwc": 60, "token": 66},
+          "the layer-norm kernel must serve all 126 norms")
     check(norms["plain"] == {"hwc": 0, "token": 0},
           "the plain path launched the layer-norm kernel")
     shape = (64, 10, d.img_size, d.img_size, d.img_channels)
     for name, out in outs.items():
         check(tuple(out.shape) == shape and bool(torch.isfinite(
             out.float()).all()), f"{name}: bad output {tuple(out.shape)}")
-    for name in ("kernel_oproj", "kernel_attn"):
-        diff = (outs[name].float() - outs["plain"].float()).abs()
-        print(f"{name} vs plain outputs: max|d|={diff.max().item():.3e} "
-              f"mean|d|={diff.mean().item():.3e}")
-        check(diff.max().item() < 0.1, f"{name} departs from the plain path")
+    diff = (outs["kernel_oproj"].float() - outs["plain"].float()).abs()
+    print(f"kernel_oproj vs plain outputs: max|d|={diff.max().item():.3e} "
+          f"mean|d|={diff.mean().item():.3e}")
+    check(diff.max().item() < 0.1, "the kernel path departs from the plain "
+          "path")
 
     blocks = {name: [] for name in runs}
-    order = ["plain", "kernel_oproj", "kernel_attn"]
+    order = ["plain", "kernel_oproj"]
     for r in range(3):
         for name in (order if r % 2 == 0 else order[::-1]):
             blocks[name].append(time_forwards(torch, lambda: forward(name),
@@ -4249,14 +4229,13 @@ def main(argv) -> int:
     ckpts = results["checkpoints"]
     replaces = {"oproj": "npvp_tpu/kernels/temporal_attention.py:136",
                 "attn": "npvp_tpu/kernels/temporal_attention.py:127"}
-    run_of = {"oproj": "kernel_oproj", "attn": "kernel_attn"}
     kernels = []
     for v in ("oproj", "attn"):
         acc = per_forward[v]
         kernels.append({
             "name": f"temporal_attention[{v}]", "route": "cuda",
             "source": "npvp_tpu_torch/kernels/csrc/temporal_attention.cu",
-            "replaces": replaces[v], "launches": launches[run_of[v]][v],
+            "replaces": replaces[v], "launches": launches["kernel_oproj"][v],
             "max_abs_err": worst[v], "ms": acc["ms"],
             "plain_ms": acc["plain_ms"], "bound_ms": acc["bound_ms"],
             "bound_by": ("bytes" if acc["by"]["bytes"] >= acc["by"]["ops"]

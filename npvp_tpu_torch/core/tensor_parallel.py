@@ -170,7 +170,8 @@ def _check_kernel_heads(model, mha, ta, model_size: int) -> None:
             or mha.dtype != torch.bfloat16):
         return
     hd = mha.wq.out_features // mha.num_heads
-    if hd != ta.HEAD_DIM_BF16 or mha.num_heads > ta.MAX_FUSED_HEADS_BF16:
+    if not ta.takes(mha.wq.out_features, mha.num_heads, torch.bfloat16,
+                    mha.wo.out_features):
         raise ValueError(
             f"model={model_size} leaves {mha.num_heads} heads of {hd} per "
             f"rank; the bf16 attention kernel takes heads of "

@@ -15,56 +15,43 @@ tanh form that bf16 takes, or ``"gelu"``, the exact form of fp32), and the
 result is rounded once to ``out_dtype``. Input and output are float32 or
 bfloat16.
 
-The kernel is the torch op ``torch.ops.npvp.layer_norm`` so that
-``torch.export`` keeps it in a serving bundle as one call: its CUDA
-implementation launches the kernel (built from ``csrc/layer_norm.cu`` with
-``nvcc`` at first use into ``kernels/_build/``) or raises, its CPU
-implementation is the plain twin, and its fake implementation gives the
-output's shape and dtype to a trace. Nothing falls back. The wrapper
-:func:`layer_norm` launches the kernel on a plain CUDA tensor without the
-op's dispatcher (its host cost would be paid 126 times a forward), and
-refuses inputs that autograd would differentiate: the norms reach it in
-eval mode only.
+The kernel is the torch op ``torch.ops.npvp.layer_norm``, under ``_nvcc``'s
+rules: :func:`layer_norm` launches it on a plain CUDA tensor without the
+op's dispatcher (its host cost would be paid 126 times a forward). The
+norms reach it on ``nn.layers.kernel_path``.
 """
 
 from __future__ import annotations
 
 import ctypes
-from pathlib import Path
 
 import torch
 import torch.nn.functional as F
 
 from npvp_tpu_torch.kernels import _nvcc
+from npvp_tpu_torch.kernels.numerics import fp32_moments
 
 # Launches by the norm that asked: "hwc" (an (H, W, C) affine), "token" (a
 # (C,) affine). The wrapper adds one per launch; nothing else touches them
 # but a caller that resets them.
 LAUNCHES = {"hwc": 0, "token": 0}
 
-# The devices whose tensors the norms hand to :func:`layer_norm` on their
-# kernel path: CUDA alone (a test adds "cpu" to reach the wrapper, whose CPU
-# side is the twin).
-DEVICES = ("cuda",)
-
 ACTS = {"none": 0, "gelu_tanh": 1, "gelu": 2}
-SOURCE = Path(__file__).resolve().parent / "csrc" / "layer_norm.cu"
+LIB = _nvcc.Library("layer_norm.cu", "liblayer_norm", {
+    "npvp_layer_norm_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]})
 # the kernel's longest row: a cluster of 16 blocks of 256 threads, 32
 # elements a thread
 MAX_LEN = 16 * 256 * 32
-
-_lib = None
-BUILD_INFO = {}
 
 
 def layer_norm_plain(x, weight, bias, eps: float, out_dtype,
                      act: str = "none"):
     """The plain PyTorch twin of the kernel: the norms' eager code step by
-    step (``nn.layers.fp32_moments``, then the affine), with the affine and
-    the GELU in fp32 and one rounding to ``out_dtype``. In float32 it is
-    bit for bit the norms' eager path (and the GELU after it)."""
-    from npvp_tpu_torch.nn.layers import fp32_moments  # imports this module
-
+    step (:func:`~npvp_tpu_torch.kernels.numerics.fp32_moments`, then the
+    affine), with the affine and the GELU in fp32 and one rounding to
+    ``out_dtype``. In float32 it is bit for bit the norms' eager path (and
+    the GELU after it)."""
     mean, var = fp32_moments(x, tuple(range(-weight.dim(), 0)))
     inv = torch.rsqrt(var + eps)
     a = inv * weight
@@ -73,24 +60,6 @@ def layer_norm_plain(x, weight, bias, eps: float, out_dtype,
     if act != "none":
         y = F.gelu(y, approximate="tanh" if act == "gelu_tanh" else "none")
     return y.to(out_dtype)
-
-
-def build() -> Path:
-    """Compile the kernel into ``kernels/_build/`` and return the library
-    path; ``BUILD_INFO`` records the build time and ptxas' report."""
-    return _nvcc.build(SOURCE, "liblayer_norm", BUILD_INFO)
-
-
-def _load():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        fn = lib.npvp_layer_norm_launch
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
 
 
 def layer_norm(x, weight, bias, *, eps: float, out_dtype,
@@ -102,15 +71,9 @@ def layer_norm(x, weight, bias, *, eps: float, out_dtype,
     or with inputs that need no gradient. A plain CUDA tensor goes to the
     kernel (:func:`launch`); anything else (a CPU tensor, a tensor that
     ``torch.export`` traces) to the op ``npvp::layer_norm``."""
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, weight, bias)):
-        raise RuntimeError(
-            "layer_norm has no backward: its inputs require grad (run it "
-            "under torch.no_grad(), or train on the plain path)")
-    if type(x) is torch.Tensor and x.is_cuda:
+    _nvcc.refuse_autograd("layer_norm", x, weight, bias)
+    if _nvcc.direct(x):
         return launch(x, weight, bias, eps, out_dtype, act)
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {x.device}")
     return torch.ops.npvp.layer_norm(x, weight, bias, eps, out_dtype, act)
 
 
@@ -167,12 +130,9 @@ def launch(x, weight, bias, eps: float, out_dtype, act: str = "none"):
     dev = x.device
     w, b = _operand(weight, dev), _operand(bias, dev)
     out = torch.empty(x.shape, dtype=out_dtype, device=dev)
-    err = _load().npvp_layer_norm_launch(
-        x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), rows, L,
-        int(x.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
-        float(eps), ACTS[act], torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"layer_norm launch failed: CUDA error {err} "
-                           f"({rows} rows of {L}, {x.dtype} -> {out_dtype})")
+    LIB.launch("npvp_layer_norm_launch", dev, x.data_ptr(), w.data_ptr(),
+               b.data_ptr(), out.data_ptr(), rows, L,
+               int(x.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
+               float(eps), ACTS[act])
     LAUNCHES["token" if nd == 1 else "hwc"] += 1
     return out

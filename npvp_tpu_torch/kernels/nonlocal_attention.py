@@ -15,45 +15,33 @@ is that the kernel divides the P·V sum by the row sum where the twin rounds
 the divided weights. Two launches a call (a pooling pre-pass, then the
 attention).
 
-The kernel is the torch op ``torch.ops.npvp.nonlocal_attention`` so that
-``torch.export`` keeps it in a serving bundle as one call: its CUDA
-implementation launches the kernel (built from ``csrc/nonlocal_attention.cu``
-with ``nvcc`` at first use into ``kernels/_build/``) or raises, its CPU
-implementation is the plain twin, and its fake implementation gives the
-output's shape and dtype to a trace. Nothing falls back. The wrapper
-:func:`nonlocal_attention` launches the kernel on a plain CUDA tensor
-without the op's dispatcher and refuses inputs that autograd would
-differentiate: the module reaches it in eval mode only.
+The kernel is the torch op ``torch.ops.npvp.nonlocal_attention``, under
+``_nvcc``'s rules: :func:`nonlocal_attention` launches it on a plain CUDA
+tensor without the op's dispatcher. The module reaches it on
+``nn.layers.kernel_path``.
 """
 
 from __future__ import annotations
 
 import ctypes
-from pathlib import Path
 
 import torch
 import torch.nn.functional as F
 
 from npvp_tpu_torch.kernels import _nvcc
-from npvp_tpu_torch.nn.layers import softmax_f32_stats
+from npvp_tpu_torch.kernels.numerics import softmax_f32_stats
 
 # Calls by their query count H·W (one call = the pooling pre-pass and the
 # attention kernel). The wrapper adds one per call; nothing else touches it
 # but a caller that resets it.
 LAUNCHES = {}
 
-# The devices whose tensors the module hands to :func:`nonlocal_attention`
-# on its kernel path: CUDA alone (a test adds "cpu" to reach the wrapper,
-# whose CPU side is the twin).
-DEVICES = ("cuda",)
-
-SOURCE = Path(__file__).resolve().parent / "csrc" / "nonlocal_attention.cu"
+LIB = _nvcc.Library("nonlocal_attention.cu", "libnonlocal_attention", {
+    "npvp_nonlocal_attention_launch": [ctypes.c_void_p] * 4
+    + [ctypes.c_int] * 5 + [ctypes.c_void_p]})
 ATTN_DIMS = (8, 16, 32, 64)
 VALUE_DIMS = (32, 64, 128, 256)
 MAX_SMEM = 232448  # dynamic shared memory a block may have on an H100
-
-_lib = None
-BUILD_INFO = {}
 
 
 def max_pool_2x2(x):
@@ -96,24 +84,6 @@ def takes(shape, attn_dim: int) -> bool:
             and H >= 2 and W >= 2 and smem <= MAX_SMEM)
 
 
-def build() -> Path:
-    """Compile the kernel into ``kernels/_build/`` and return the library
-    path; ``BUILD_INFO`` records the build time and ptxas' report."""
-    return _nvcc.build(SOURCE, "libnonlocal_attention", BUILD_INFO)
-
-
-def _load():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        fn = lib.npvp_nonlocal_attention_launch
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
-
-
 def nonlocal_attention(qkv, attn_dim: int):
     """The non-local attention of the fused projection's ``qkv`` (N, H, W,
     2·attn_dim + dv): (N, H, W, dv) in ``qkv``'s dtype. Raises under
@@ -121,14 +91,9 @@ def nonlocal_attention(qkv, attn_dim: int):
     no gradient. A plain CUDA tensor goes to the kernel (:func:`launch`);
     anything else (a CPU tensor, a tensor that ``torch.export`` traces) to
     the op ``npvp::nonlocal_attention``."""
-    if torch.is_grad_enabled() and qkv.requires_grad:
-        raise RuntimeError(
-            "nonlocal_attention has no backward: its input requires grad "
-            "(run it under torch.no_grad(), or train on the plain path)")
-    if type(qkv) is torch.Tensor and qkv.is_cuda:
+    _nvcc.refuse_autograd("nonlocal_attention", qkv)
+    if _nvcc.direct(qkv):
         return launch(qkv, attn_dim)
-    if qkv.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {qkv.device}")
     return torch.ops.npvp.nonlocal_attention(qkv, attn_dim)
 
 
@@ -170,12 +135,8 @@ def launch(qkv, attn_dim: int):
     kp = torch.empty((N, k16, attn_dim), dtype=qkv.dtype, device=dev)
     vt = torch.empty((N, dv, k16), dtype=qkv.dtype, device=dev)
     out = torch.empty((N, H, W, dv), dtype=qkv.dtype, device=dev)
-    err = _load().npvp_nonlocal_attention_launch(
-        qkv.data_ptr(), kp.data_ptr(), vt.data_ptr(), out.data_ptr(), N, H,
-        W, attn_dim, dv, torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"nonlocal_attention launch failed: CUDA error "
-                           f"{err} (qkv {tuple(qkv.shape)}, attn_dim "
-                           f"{attn_dim})")
+    LIB.launch("npvp_nonlocal_attention_launch", dev, qkv.data_ptr(),
+               kp.data_ptr(), vt.data_ptr(), out.data_ptr(), N, H, W,
+               attn_dim, dv)
     LAUNCHES[H * W] = LAUNCHES.get(H * W, 0) + 1
     return out

@@ -14,17 +14,13 @@ accumulated in fp32; then either ``ctx`` (B, Tq, H·D) or ``Σ_h ctx_h·wo_hᵀ
 or bfloat16).
 
 The kernel is the torch op ``torch.ops.npvp.temporal_attention`` (both
-variants: ``wo`` None or given), so that ``torch.export`` keeps it in a
-serving bundle as one call: its CUDA implementation launches the kernel
-(built from ``csrc/temporal_attention.cu`` with ``nvcc`` at first use into
-``kernels/_build/``) or raises, its CPU implementation is the plain twin,
-and its fake implementation gives the output's shape and dtype to a trace.
-Nothing falls back. A process that loads such a bundle imports this module
-first, which registers the op. The kernel has no backward, so the wrapper
-:func:`temporal_attention` refuses, on either device and before the op,
-inputs that autograd would differentiate: the call sites reach it in eval
-mode only, as the JAX package reaches its kernel only when
-``deterministic``.
+variants: ``wo`` None or given), under ``_nvcc``'s rules; importing this
+module registers it, and a serving bundle keeps it as one call. Unlike the
+other wrappers, :func:`temporal_attention` calls the op on a CUDA tensor
+too, so that a profiler records each call's shapes. The call sites reach it
+on ``nn.layers.kernel_path``, as the JAX package reaches its kernel only
+when ``deterministic``, and always fuse the output projection; the
+attention-only variant stays reachable with ``wo=None``.
 """
 
 from __future__ import annotations
@@ -32,7 +28,6 @@ from __future__ import annotations
 import ctypes
 import math
 import weakref
-from pathlib import Path
 from typing import Optional
 
 import torch
@@ -41,25 +36,19 @@ from npvp_tpu_torch.kernels import _nvcc
 
 NEG_INF = float(torch.finfo(torch.float32).min)
 
-# When True the attention call sites pass the output projection into the
-# kernel, so the (B, Tq, H·D) context never reaches device memory; False
-# runs the attention-only variant followed by a separate projection (the
-# A/B arm). Read at call time.
-FUSE_OPROJ = True
-
 # Launches of each kernel variant; the wrapper adds one per launch, and
 # nothing else touches them but a caller that resets them.
 LAUNCHES = {"oproj": 0, "attn": 0}
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "temporal_attention.cu"
+LIB = _nvcc.Library("temporal_attention.cu", "libtemporal_attention", {
+    "temporal_attention_launch": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+    + [ctypes.c_void_p],
+    "temporal_attention_smem_bytes": [ctypes.c_int] * 6})
 # the kernel keeps a tile of sites whose tokens fit 64 rows
 MAX_TOKENS = 64
 # the bf16 kernel's heads are 64 wide (one 128-byte row) and its fused
 # variant keeps the context of at most 8 heads in shared memory
 HEAD_DIM_BF16, MAX_FUSED_HEADS_BF16 = 64, 8
-
-_lib = None
-BUILD_INFO = {}
 
 
 def allow_to_bias(allow) -> torch.Tensor:
@@ -91,32 +80,25 @@ def temporal_attention_plain(q, k, v, bias=None, *, num_heads: int, wo=None,
     return out.to(q.dtype)
 
 
-def build() -> Path:
-    """Compile the kernel into ``kernels/_build/`` (named by the source's
-    hash, so an edited source builds anew) and return the library path.
-    ``BUILD_INFO`` records the build time and ptxas' register report."""
-    return _nvcc.build(SOURCE, "libtemporal_attention", BUILD_INFO)
-
-
-def _load():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        fn = lib.temporal_attention_launch
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        smem = lib.temporal_attention_smem_bytes
-        smem.argtypes = [ctypes.c_int] * 6
-        smem.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+def takes(HD: int, num_heads: int, dtype, C: Optional[int] = None,
+          tokens: int = 1) -> bool:
+    """Whether the kernel takes ``num_heads`` heads of H·D = ``HD`` in
+    ``dtype`` over sites of at most ``tokens`` queries and keys, with the
+    output projection to ``C`` channels fused (None: attention only): at
+    most 64 tokens; in bfloat16 heads of 64 and, fused, at most 8 heads and
+    C a multiple of 8 (the Hopper kernel's 128-byte rows, its shared memory
+    and its TMA strides)."""
+    bf16 = dtype == torch.bfloat16
+    return (HD % num_heads == 0 and tokens <= MAX_TOKENS
+            and not (bf16 and HD != HEAD_DIM_BF16 * num_heads)
+            and not (bf16 and C is not None
+                     and (num_heads > MAX_FUSED_HEADS_BF16 or C % 8)))
 
 
 def smem_bytes(Tq: int, Tk: int, HD: int, num_heads: int, dtype,
                fuse: bool) -> int:
     """Dynamic shared memory of one block of the kernel, in bytes."""
-    return _load().temporal_attention_smem_bytes(
+    return LIB.load().temporal_attention_smem_bytes(
         Tq, Tk, HD, num_heads, 1 if dtype == torch.bfloat16 else 0,
         int(fuse))
 
@@ -167,14 +149,8 @@ def temporal_attention(q, k, v, bias=None, *, num_heads: int, wo=None,
     Raises under autograd: call it under ``torch.no_grad()`` or with inputs
     that need no gradient. Calls the op ``npvp::temporal_attention``: the
     kernel on a CUDA tensor, the plain twin on a CPU one."""
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in (q, k, v, bias, wo,
-                                                         bo)):
-        raise RuntimeError(
-            "temporal_attention has no backward: its inputs require grad "
-            "(run it under torch.no_grad(), or train on the plain path)")
-    if q.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {q.device}")
+    _nvcc.refuse_autograd("temporal_attention", q, k, v, bias, wo, bo)
+    _nvcc.check_device(q)
     return torch.ops.npvp.temporal_attention(q, k, v, bias, wo, bo,
                                              num_heads)
 
@@ -215,11 +191,8 @@ def launch(q, k, v, bias, wo, bo, num_heads: int):
         raise ValueError(f"unsupported dtype {q.dtype}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError("q, k and v must share one dtype")
-    bf16 = q.dtype == torch.bfloat16
-    if (HD % num_heads or max(Tq, Tk) > MAX_TOKENS or B == 0
-            or (bf16 and HD != HEAD_DIM_BF16 * num_heads)
-            or (bf16 and wo is not None
-                and (num_heads > MAX_FUSED_HEADS_BF16 or wo.shape[0] % 8))):
+    if B == 0 or not takes(HD, num_heads, q.dtype,
+                           None if wo is None else wo.shape[0], max(Tq, Tk)):
         raise ValueError(f"unsupported shape B={B} Tq={Tq} Tk={Tk} "
                          f"HD={HD} heads={num_heads}")
     dev = q.device
@@ -238,13 +211,9 @@ def launch(q, k, v, bias, wo, bo, num_heads: int):
         bo = (torch.zeros(C, device=dev) if bo is None
               else bo.to(device=dev, dtype=torch.float32).contiguous())
     out = torch.empty((B, Tq, C), dtype=q.dtype, device=dev)
-    err = _load().temporal_attention_launch(
-        _ptr(q), _ptr(k), _ptr(v), _ptr(bias), _ptr(wo), _ptr(bo),
-        _ptr(out), B, Tq, Tk, HD, num_heads, C,
-        1 if q.dtype == torch.bfloat16 else 0, 0 if wo is None else 1,
-        torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"temporal_attention launch failed: CUDA error "
-                           f"{err} (B={B} Tq={Tq} Tk={Tk} HD={HD} C={C})")
+    LIB.launch("temporal_attention_launch", dev, _ptr(q), _ptr(k), _ptr(v),
+               _ptr(bias), _ptr(wo), _ptr(bo), _ptr(out), B, Tq, Tk, HD,
+               num_heads, C, 1 if q.dtype == torch.bfloat16 else 0,
+               0 if wo is None else 1)
     LAUNCHES["attn" if wo is None else "oproj"] += 1
     return out

@@ -286,9 +286,9 @@ class VideoPredictor:
         """Load a bundle written by :meth:`export_task` and return
         ``fn(observed_frames, eps=None, generator=None) -> (N, TP, H, W,
         C)``, which runs the exported program alone: no model modules, no
-        config. It needs torch and, for a bundle holding the attention
-        kernel, the op registered first: ``import
-        npvp_tpu_torch.kernels.temporal_attention`` (this module does).
+        config. It needs torch and, for a bundle exported on
+        ``exec_mode="pallas"``, the kernels' ops registered first (importing
+        this module does).
 
         The program's batch is static: a request of N clips runs in chunks
         of that batch, the last one padded with zeros whose rows are

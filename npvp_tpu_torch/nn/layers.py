@@ -29,6 +29,8 @@ from npvp_tpu_torch.core.distributed import (all_reduce_sum, copy_to_model,
                                              reduce_from_model)
 from npvp_tpu_torch.core.sequence_parallel import sp_param, span
 from npvp_tpu_torch.kernels import layer_norm as ln_kernel
+from npvp_tpu_torch.kernels.numerics import (  # noqa: F401 (re-exported)
+    fp32_moments, softmax_f32_stats)
 from npvp_tpu_torch.nn.quant import int8_contract
 
 
@@ -144,15 +146,6 @@ def scaled_dot_product_attention(q, k, v, mask=None, dropout_rate=0.0,
     return torch.einsum("...hqk,...khd->...qhd", weights, v)
 
 
-def softmax_f32_stats(logits, dims):
-    """Softmax reading and writing ``logits`` in its own dtype with fp32
-    exponent and sum (the subtraction of the max happens in that dtype): the
-    AE's non-local attentions, whose logits are unscaled."""
-    lmax = logits.amax(dim=dims, keepdim=True)
-    e = torch.exp((logits - lmax).float())
-    return (e / e.sum(dim=dims, keepdim=True)).to(logits.dtype)
-
-
 def linear(x, layer: nn.Linear, dtype, quant: bool = False, sp=None):
     """``x @ W + b`` in the compute dtype, W and b cast from float32; with
     ``quant`` the product is the dynamic int8 one
@@ -249,16 +242,6 @@ class MultiHeadAttention(nn.Module):
                             tp, partial)
 
 
-def fp32_moments(x, dims, keepdim: bool = True):
-    """(mean, var) over ``dims`` in float32, var as E[x²] − E[x]² clamped at
-    0 — the form every norm and affine-statistics site of the JAX package
-    shares, so the affine and generic attention paths agree."""
-    xf = x.float()
-    mean = xf.mean(dim=dims, keepdim=keepdim)
-    mean_sq = (xf * xf).mean(dim=dims, keepdim=keepdim)
-    return mean, torch.clamp(mean_sq - mean * mean, min=0.0)
-
-
 class BatchNorm(nn.Module):
     """BatchNorm over the trailing channel axis, applied as a per-channel
     affine ``x·a + b`` in the compute dtype. Eval mode reads the running
@@ -319,21 +302,26 @@ def sync_batchnorm(module: nn.Module, data_axis) -> nn.Module:
     return module
 
 
-def norm_kernel_path(norm: nn.Module, x, sp) -> bool:
-    """A norm's kernel path (``kernels/layer_norm.py``): ``exec_mode
-    "pallas"``, eval mode, no sequence-parallel shard, a CUDA tensor. The
-    rest (training, the xla and int8 modes, shards, the CPU) runs the
-    eager code, which the JAX parity tests hold."""
-    return (norm.exec_mode == "pallas" and not norm.training and sp is None
-            and x.device.type in ln_kernel.DEVICES)
+def kernel_path(module: nn.Module, x) -> bool:
+    """Whether ``module`` hands ``x`` to its hand-written kernel (the
+    attention's, a norm's, the AE's non-local attention's): ``exec_mode
+    "pallas"``, eval mode, and nothing that needs a gradient — ``x``, or
+    the module's own parameters (a norm's affine) — while autograd records,
+    for the kernels have no backward. On any device: the kernel's wrapper
+    launches it on a CUDA tensor and runs its plain twin on a CPU one. The
+    rest (training, the xla and int8 modes, a forward under autograd) runs
+    the eager code, which the JAX parity tests hold."""
+    return (module.exec_mode == "pallas" and not module.training
+            and not (torch.is_grad_enabled() and (x.requires_grad or any(
+                p.requires_grad for p in module.parameters(False)))))
 
 
 class TokenLayerNorm(nn.Module):
     """LayerNorm over the trailing channel axis with fp32 statistics and the
     affine applied in the compute dtype. Default eps 1e-6 as in flax; every
-    VidHRFormer call site passes 1e-5. On the kernel path
-    (:func:`norm_kernel_path`) the hand-written kernel computes it, the
-    affine in fp32 and one rounding to ``dtype``."""
+    VidHRFormer call site passes 1e-5. On :func:`kernel_path`, off a
+    sequence-parallel shard, the hand-written kernel computes it, the affine
+    in fp32 and one rounding to ``dtype``."""
 
     def __init__(self, channels: int, eps: float = 1e-6,
                  dtype=torch.float32, exec_mode: str = "xla"):
@@ -344,7 +332,9 @@ class TokenLayerNorm(nn.Module):
 
     def forward(self, x, sp=None):
         """``sp``: ``x`` is a sequence-parallel shard."""
-        if norm_kernel_path(self, x, sp):
+        # a sequence-parallel shard keeps the eager code, as LayerNormHWC
+        # (whose statistics are summed over the ranks) does
+        if sp is None and kernel_path(self, x):
             return ln_kernel.layer_norm(x.contiguous(), self.weight,
                                         self.bias, eps=self.eps,
                                         out_dtype=self.dtype)
@@ -358,10 +348,11 @@ class TokenLayerNorm(nn.Module):
 
 class LayerNormHWC(nn.Module):
     """LayerNorm over the trailing (H, W, C) axes with an (H, W, C) affine
-    (the reference's ``nn.LayerNorm((C, H, W))`` in channels-last). On the
-    kernel path (:func:`norm_kernel_path`) the hand-written kernel computes
-    it, with the GELU ``act`` ("gelu_tanh" or "gelu") after it when asked,
-    the affine and the GELU in fp32 and one rounding to ``x.dtype``.
+    (the reference's ``nn.LayerNorm((C, H, W))`` in channels-last), with
+    the GELU ``act`` ("gelu_tanh" or "gelu") after it when asked. On
+    :func:`kernel_path`, off a sequence-parallel shard, the hand-written
+    kernel computes both, the affine and the GELU in fp32 and one rounding
+    to ``x.dtype``; elsewhere the eager code does, rounding at each step.
 
     On a sequence-parallel shard (``sp``: ``x`` holds rows ``rank·h`` …
     of H) the statistics are the whole sample's: (Σx, Σx², count) summed
@@ -375,15 +366,15 @@ class LayerNormHWC(nn.Module):
         self.bias = nn.Parameter(torch.zeros(tuple(shape)))
 
     def forward(self, x, sp=None, act: Optional[str] = None):
-        """``act``: the GELU the kernel applies after the norm, on its kernel
-        path only (off it the caller applies the GELU)."""
-        if norm_kernel_path(self, x, sp):
+        """``act``: the GELU after the norm ("gelu_tanh", "gelu"; None:
+        none)."""
+        # a shard's statistics are summed over the model axis in the eager
+        # code
+        if sp is None and kernel_path(self, x):
             return ln_kernel.layer_norm(x.contiguous(), self.weight,
                                         self.bias, eps=self.eps,
                                         out_dtype=x.dtype,
                                         act=act or "none")
-        if act is not None:
-            raise ValueError("the GELU epilogue is the kernel path's")
         weight, bias = self.weight, self.bias
         if sp is None:
             mean, var = fp32_moments(x, (-3, -2, -1))
@@ -402,7 +393,10 @@ class LayerNormHWC(nn.Module):
         inv = torch.rsqrt(var + self.eps)
         a = (inv * weight).to(x.dtype)
         b = (bias - mean * inv * weight).to(x.dtype)
-        return x * a + b
+        y = x * a + b
+        if act is None:
+            return y
+        return F.gelu(y, approximate="tanh" if act == "gelu_tanh" else "none")
 
 
 class DropPath(nn.Module):

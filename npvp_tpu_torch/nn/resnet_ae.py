@@ -20,7 +20,7 @@ from torch import nn
 from npvp_tpu_torch.core.tracing import span
 from npvp_tpu_torch.kernels import nonlocal_attention as nla
 from npvp_tpu_torch.nn.layers import (BatchNorm, ConvBNAct, conv_nhwc,
-                                      linear, reflect_pad_2d,
+                                      kernel_path, linear, reflect_pad_2d,
                                       softmax_f32_stats)
 from npvp_tpu_torch.nn.upsample import (subpixel_conv_same,
                                         subpixel_conv_transpose_3x3_s2)
@@ -30,11 +30,13 @@ class NonLocalAttention2D(nn.Module):
     """Global spatial attention with 2×2 max-pooled keys/values and a
     zero-initialised residual gate ``gamma``; logits are unscaled (SAGAN
     convention) and kept in the compute dtype with fp32 softmax statistics.
-    Each call is one ``npvp.ae.nonlocal`` span. On the kernel path
-    (:meth:`kernel_path`) the hand-written kernel
-    (``kernels/nonlocal_attention.py``) computes the attention between the
-    fused projection and ``out_proj``; elsewhere its plain twin, the eager
-    code, does. ``exec_mode`` is a plain attribute, not state."""
+    Each call is one ``npvp.ae.nonlocal`` span. On
+    :func:`~npvp_tpu_torch.nn.layers.kernel_path`, for a bf16 ``qkv``, the
+    hand-written kernel's wrapper (``kernels/nonlocal_attention.py``)
+    computes the attention between the fused projection and ``out_proj``;
+    elsewhere its plain twin, the eager code, does. A shape the kernel does
+    not take raises in the wrapper: it does not fall back. ``exec_mode`` is
+    a plain attribute, not state."""
 
     def __init__(self, channels: int, attn_ratio: int = 8,
                  value_ratio: int = 2, dtype=torch.float32,
@@ -56,23 +58,13 @@ class NonLocalAttention2D(nn.Module):
             w3 = torch.cat([self.wq.weight, self.wk.weight, self.wv.weight])
             b3 = torch.cat([self.wq.bias, self.wk.bias, self.wv.bias])
             qkv = F.linear(x.to(dt), w3.to(dt), b3.to(dt))
-            if self.kernel_path(qkv):
+            # the kernel is bf16 only; fp32 (the golden check) takes the twin
+            if qkv.dtype == torch.bfloat16 and kernel_path(self, qkv):
                 out = nla.nonlocal_attention(qkv, a)
             else:
                 out = nla.nonlocal_attention_plain(qkv, a)
             out = torch.relu(self.bn(linear(out, self.out_proj, dt)))
             return x + self.gamma.to(x.dtype) * out
-
-    def kernel_path(self, qkv) -> bool:
-        """``exec_mode "pallas"``, eval mode, a bf16 tensor on a device of
-        ``nla.DEVICES`` (CUDA) that needs no gradient. The rest (stage-1
-        training, the xla and int8 modes, fp32, the CPU) runs the twin,
-        which the JAX parity tests hold. A shape the kernel does not take
-        raises in the kernel's wrapper: it does not fall back."""
-        return (self.exec_mode == "pallas" and not self.training
-                and qkv.dtype == torch.bfloat16
-                and qkv.device.type in nla.DEVICES
-                and not (torch.is_grad_enabled() and qkv.requires_grad))
 
 
 class NonLocalAttention1D(nn.Module):

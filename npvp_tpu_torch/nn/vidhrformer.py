@@ -14,14 +14,16 @@ The blocks take the affine path in eval mode only, as JAX takes it only when
 ``deterministic``: training runs the generic path, with dropout and DropPath
 drawn from an explicit :class:`~npvp_tpu_torch.nn.layers.Rng` and, with
 ``remat``, each block recomputed in the backward pass
-(``torch.utils.checkpoint``). With ``exec_mode="pallas"`` the affine path of
-a module in eval mode hands its (sites, T, H·D) q/k/v to the hand-written
-kernel (``npvp_tpu_torch.kernels.temporal_attention``), output projection
-included; otherwise it takes the plain attention. In the same mode the
-norms of a module in eval mode run as the hand-written LayerNorm kernel
-(``npvp_tpu_torch.kernels.layer_norm``) on a CUDA tensor, the conv FFN's
-GELUs as its epilogue. The kernels have no backward, so nothing that is
-trained reaches them. With ``exec_mode="int8"``
+(``torch.utils.checkpoint``). One rule, ``nn.layers.kernel_path``, sends a
+module to its hand-written kernel: ``exec_mode="pallas"``, eval mode, and
+nothing that needs a gradient. On it the affine path hands its (sites, T,
+H·D) q/k/v to the attention kernel
+(``npvp_tpu_torch.kernels.temporal_attention``), output projection included,
+and the norms run as the LayerNorm kernel
+(``npvp_tpu_torch.kernels.layer_norm``), the conv FFN's GELUs as its
+epilogue; elsewhere the plain attention and the eager norms run. The
+kernels have no backward, so nothing that is trained reaches them. On a CPU
+tensor each kernel's wrapper runs its plain twin. With ``exec_mode="int8"``
 every projection and feed-forward product of the input runs as a dynamic
 int8 product (``npvp_tpu_torch.nn.quant``), the attention itself in the
 compute dtype; the positional terms stay in the compute dtype, as in the
@@ -43,7 +45,6 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from npvp_tpu_torch.kernels import layer_norm as ln_kernel
 from npvp_tpu_torch.kernels import temporal_attention as ta_kernel
 from npvp_tpu_torch.core.distributed import copy_to_model, reduce_from_model
 from npvp_tpu_torch.core.sequence_parallel import (gather_h, h_split,
@@ -54,7 +55,7 @@ from npvp_tpu_torch.core.sequence_parallel import (gather_h, h_split,
 from npvp_tpu_torch.nn.layers import (DropPath, LayerNormHWC,
                                       MultiHeadAttention, Rng,
                                       TokenLayerNorm, dropout, fold,
-                                      fp32_moments, linear, norm_kernel_path,
+                                      fp32_moments, kernel_path, linear,
                                       row_parallel,
                                       scaled_dot_product_attention, tp_split)
 from npvp_tpu_torch.nn.neural_process import pos_feat_fuse
@@ -115,35 +116,33 @@ def _mm(x, w, dtype, quant: bool = False):
     return x.to(dtype) @ w.to(dtype)
 
 
-def _attend(qf, kf, vf, mha: MultiHeadAttention, exec_mode: str, dtype,
-            allow=None, rng: Optional[Rng] = None, partial: bool = False):
+def _attend(qf, kf, vf, owner: nn.Module, dtype, allow=None,
+            rng: Optional[Rng] = None, partial: bool = False):
     """Per-site attention plus output projection of (..., Tq, HD) q and
-    (..., Tk, HD) k/v whose leading axes are sites; ``allow`` is a boolean
-    (Tq, Tk) mask. Returns (..., Tq, C). The kernel serves ``exec_mode ==
-    "pallas"`` in eval mode only; training takes the plain attention, with
-    its weight dropout. Under tensor parallelism q/k/v hold ``mha``'s local
-    heads and the output is summed over the model axis: the fused kernel
-    projects with wo's local columns, and model rank 0 alone adds bo. With
-    ``partial`` the local heads' projection is returned unsummed and
-    without bo (``nn.layers.row_parallel``)."""
+    (..., Tk, HD) k/v whose leading axes are sites, by ``owner.attn``, a
+    :class:`MultiHeadAttention`; ``allow`` is a boolean (Tq, Tk) mask.
+    Returns (..., Tq, C). On :func:`~npvp_tpu_torch.nn.layers.kernel_path`
+    of ``owner`` the kernel computes it, output projection included;
+    elsewhere the plain attention, with its weight dropout in training.
+    Under tensor parallelism q/k/v hold the local heads and the output is
+    summed over the model axis: the kernel projects with wo's local
+    columns, and model rank 0 alone adds bo. With ``partial`` the local
+    heads' projection is returned unsummed and without bo
+    (``nn.layers.row_parallel``)."""
+    mha = owner.attn
     lead, Tq, HD = qf.shape[:-2], qf.shape[-2], qf.shape[-1]
     Tk = kf.shape[-2]
     nh, tp = mha.num_heads, mha.tp
-    if exec_mode == "pallas" and not mha.training:
+    if kernel_path(owner, qf):
         bias = None if allow is None else ta_kernel.allow_to_bias(allow)
-        q, k, v = (qf.reshape(-1, Tq, HD), kf.reshape(-1, Tk, HD),
-                   vf.reshape(-1, Tk, HD))
-        if ta_kernel.FUSE_OPROJ:
-            own_bo = not partial and (tp is None or tp.rank == 0)
-            out = ta_kernel.temporal_attention(
-                q, k, v, bias, num_heads=nh, wo=mha.wo.weight,
-                bo=mha.wo.bias if own_bo else None)
-            if not partial:
-                out = reduce_from_model(out, tp)
-            return out.reshape(lead + (Tq, -1))
-        out = ta_kernel.temporal_attention(q, k, v, bias, num_heads=nh)
-        return row_parallel(out.reshape(lead + (Tq, HD)), mha.wo, dtype,
-                            tp=tp, partial=partial)
+        own_bo = not partial and (tp is None or tp.rank == 0)
+        out = ta_kernel.temporal_attention(
+            qf.reshape(-1, Tq, HD), kf.reshape(-1, Tk, HD),
+            vf.reshape(-1, Tk, HD), bias, num_heads=nh, wo=mha.wo.weight,
+            bo=mha.wo.bias if own_bo else None)
+        if not partial:
+            out = reduce_from_model(out, tp)
+        return out.reshape(lead + (Tq, -1))
     heads = lambda t: t.reshape(t.shape[:-1] + (nh, -1))  # noqa: E731
     out = scaled_dot_product_attention(heads(qf), heads(kf), heads(vf),
                                        allow, mha.dropout_rate, rng,
@@ -211,16 +210,15 @@ class SpatialWindowAttention(nn.Module):
         qf = a4 * pq + (b4 * ones_q + pos_q).to(dt)
         kf = a4 * pk + (b4 * ones_k + pos_k).to(dt)
         vf = pv + bv.to(dt)
-        out = _attend(qf, kf, vf, self.attn, self.exec_mode, dt, rng=rng,
-                      partial=partial)
+        out = _attend(qf, kf, vf, self, dt, rng=rng, partial=partial)
         out = window_reverse(out.reshape(N * T * nW, ws * ws, C), ws, N * T,
                              H, W)
         return out.reshape(N, T, H, W, C)
 
 
 def _gelu_for(dtype):
-    """Exact GELU in fp32, tanh-approximated GELU in bf16 (the forms of the
-    norm kernel's epilogue in ``MlpDWBN``)."""
+    """Exact GELU in fp32, tanh-approximated GELU in bf16 (the forms that
+    ``MlpDWBN`` asks of its norms)."""
     approx = "tanh" if dtype == torch.bfloat16 else "none"
     return lambda x: F.gelu(x, approximate=approx)
 
@@ -230,8 +228,8 @@ class MlpDWBN(nn.Module):
     per-sample (H, W, C) LayerNorm after each stage, dropout after the last
     two. The 1×1 convs are ``nn.Linear`` over the channel axis, dynamic
     int8 products with ``quant``; the depthwise conv stays in the compute
-    dtype. On the norms' kernel path (``exec_mode "pallas"`` in eval mode,
-    a CUDA tensor) each GELU is the hand-written norm kernel's epilogue. On
+    dtype. Each GELU is its norm's ``act``: on the norms' kernel path the
+    hand-written norm kernel's epilogue. On
     a sequence-parallel H shard (``sp``) the depthwise conv reads a one-row
     halo of each neighbour and the LayerNorms take the whole sample's
     statistics."""
@@ -256,28 +254,21 @@ class MlpDWBN(nn.Module):
     def forward(self, x, rng: Optional[Rng] = None, sp=None):
         N, T, H, W, C = x.shape
         dt = self.dtype
-        # the three norms share the kernel path; on it the GELU after each
-        # is the kernel's epilogue
-        if norm_kernel_path(self.norm1, x, sp):
-            epilogue = "gelu_tanh" if dt == torch.bfloat16 else "gelu"
-            act = lambda y: y  # noqa: E731
-        else:
-            epilogue, act = None, _gelu_for(dt)
+        gelu = "gelu_tanh" if dt == torch.bfloat16 else "gelu"
         drop = lambda y, tag: dropout(y, self.dropout,  # noqa: E731
                                       self.training, fold(rng, tag),
                                       h_split(sp, 1))
         y = x.reshape(N * T, H, W, C)
-        y = act(self.norm1(linear(y, self.fc1, dt, self.quant, sp), sp,
-                           epilogue))
+        y = self.norm1(linear(y, self.fc1, dt, self.quant, sp), sp, gelu)
         dw, pad = self.dw3x3, (1, 1)
         if sp is not None:  # H's padding: the neighbours' rows
             y, pad = halo_rows(y, sp), (0, 1)
         y = F.conv2d(y.permute(0, 3, 1, 2), sp_param(dw.weight, sp).to(dt),
                      sp_param(dw.bias, sp).to(dt), 1, pad, 1,
                      dw.groups).permute(0, 2, 3, 1)
-        y = drop(act(self.norm2(y, sp, epilogue)), "drop2")
-        y = drop(act(self.norm3(linear(y, self.fc2, dt, self.quant, sp), sp,
-                                epilogue)), "drop3")
+        y = drop(self.norm2(y, sp, gelu), "drop2")
+        y = drop(self.norm3(linear(y, self.fc2, dt, self.quant, sp), sp,
+                            gelu), "drop3")
         return y.reshape(N, T, H, W, -1)
 
 
@@ -367,8 +358,7 @@ class TemporalAttention(nn.Module):
                   + (to_bt(bk_s) * ones_k
                      + posmm(pos_beta_kv, wk_f, bk, To)).to(dt))
             vf = Pv + bv.to(dt)
-        out = _attend(qf, kf, vf, self.attn, self.exec_mode, dt, allow, rng,
-                      partial)
+        out = _attend(qf, kf, vf, self, dt, allow, rng, partial)
         return out.permute(0, 3, 1, 2, 4)
 
 

@@ -8,8 +8,7 @@ the forward to one task shape and writes ``program.pt2``
 the device it was exported on (``Env.platform``, the card when unset).
 Serve with::
 
-    import npvp_tpu_torch.kernels.temporal_attention  # registers the op
-    from npvp_tpu_torch.models.inference import VideoPredictor
+    from npvp_tpu_torch.models.inference import VideoPredictor  # the ops
     fn = VideoPredictor.serve_exported("bundle_dir")
     pred = fn(observed_frames)                          # (N, TP, H, W, C)
 

@@ -95,6 +95,9 @@ NOT_PORTED = {
         "Mosaic's site tile; the CUDA kernel tiles 64 rows in its source",
     ("kernels/temporal_attention.py", "PACK_LANES"):
         "the TPU's 128 lanes that sites are packed into; not a GPU layout",
+    ("kernels/temporal_attention.py", "FUSE_OPROJ"):
+        "not ported as a switch: the call sites always fuse; the "
+        "attention-only kernel stays reachable with `wo=None`",
     ("train/stage1_ae.py", "make_steps.train_multi"): _STACKED,
     ("train/stage1_ae.py", "make_steps.eval_multi"): _STACKED,
     ("train/stage1_ae.py", "make_steps.place_stack"): _STACKED,

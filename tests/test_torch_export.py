@@ -1,9 +1,6 @@
-"""Serving bundles and the kernel as a torch op, on the CPU:
+"""Serving bundles, on the CPU (the kernels' ops under ``torch.export``, one
+node a call, are held in ``tests/test_torch_kernel_seam.py``):
 
-- ``npvp::temporal_attention`` (both variants) under ``torch.export``: its
-  fake implementation gives the output's shape and dtype to the trace, the
-  op stays in the graph as one call, and the exported program gives the
-  eager wrapper's output; the autograd refusal still comes before the op;
 - ``VideoPredictor.export_task`` → ``serve_exported`` (NPVP-D and NPVP-S,
   exec_mode pallas, fp32): bit-equal to the port's ``freeze_task`` with the
   same noise, a request larger than the static batch chunked and its last
@@ -28,57 +25,9 @@ import numpy as np  # noqa: E402
 from _torch_helpers import (port_config, random_variables,  # noqa: E402
                             tiny_config)
 
-from npvp_tpu_torch.kernels import temporal_attention as ta  # noqa: E402
 from npvp_tpu_torch.models.inference import VideoPredictor  # noqa: E402
 
 TO, TP = np.arange(3), np.arange(3, 6)
-
-
-class _Attend(torch.nn.Module):
-    def __init__(self, fuse):
-        super().__init__()
-        self.wo = torch.nn.Linear(32, 24) if fuse else None
-
-    def forward(self, q, k, v, bias):
-        return ta.temporal_attention(
-            q, k, v, bias, num_heads=4,
-            wo=None if self.wo is None else self.wo.weight,
-            bo=None if self.wo is None else self.wo.bias)
-
-
-@pytest.mark.parametrize("fuse", [True, False])
-def test_op_under_torch_export(fuse):
-    g = torch.Generator().manual_seed(0)
-    q, k, v = (torch.randn(6, T, 32, generator=g) for T in (5, 7, 7))
-    allow = torch.rand(5, 7, generator=g) > 0.3
-    allow[:, 0] = True
-    bias = ta.allow_to_bias(allow)
-    mod = _Attend(fuse).eval()
-    with torch.no_grad():
-        program = torch.export.export(mod, (q, k, v, bias))
-        want = mod(q, k, v, bias)
-    calls = [n for n in program.graph.nodes
-             if n.op == "call_function"
-             and "npvp.temporal_attention" in str(n.target)]
-    assert len(calls) == 1
-    fake = calls[0].meta["val"]
-    assert tuple(fake.shape) == (6, 5, 24 if fuse else 32)
-    assert fake.dtype == torch.float32
-    with torch.inference_mode():
-        got = program.module()(q, k, v, bias)
-    assert torch.equal(got, want)
-    # the fake implementation alone, on meta tensors
-    meta = [t.to("meta") for t in (q, k, v)]
-    out = torch.ops.npvp.temporal_attention(*meta, None, None, None, 4)
-    assert out.shape == (6, 5, 32) and out.device.type == "meta"
-
-
-def test_wrapper_refuses_autograd_before_the_op(monkeypatch):
-    q = torch.randn(2, 3, 8, requires_grad=True)
-    monkeypatch.setattr(torch.ops.npvp, "temporal_attention", None,
-                        raising=False)
-    with pytest.raises(RuntimeError, match="no backward"):
-        ta.temporal_attention(q, q, q, num_heads=2)
 
 
 def _small(stochastic):

@@ -176,13 +176,6 @@ def test_wo_operand_casts_each_weight_once():
     torch.testing.assert_close(fresh, w.detach().to(torch.bfloat16))
 
 
-def test_cpu_tensors_take_the_twin_and_count_no_launch(monkeypatch):
-    monkeypatch.setattr(ta, "LAUNCHES", {"oproj": 0, "attn": 0})
-    monkeypatch.setattr(ta, "_load", lambda: pytest.fail("kernel loaded"))
-    _port(*_inputs(4, 3, 3, 2, 8, C=8), nh=2)
-    assert ta.LAUNCHES == {"oproj": 0, "attn": 0}
-
-
 def test_allow_to_bias():
     allow = np.array([[True, False], [False, True]])
     np.testing.assert_array_equal(

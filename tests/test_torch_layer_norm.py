@@ -1,22 +1,18 @@
-"""The LayerNorm kernel's wrapper, op and call sites, on the CPU
+"""The LayerNorm kernel's twin and call sites, on the CPU
 (``npvp_tpu_torch/kernels/layer_norm.py``; the kernel itself runs on the
-card, ``tests/test_torch_layer_norm_cuda.py``):
+card, ``tests/test_torch_layer_norm_cuda.py``; its op, wrapper and the
+kernel-path rule with the other kernels' in
+``tests/test_torch_kernel_seam.py``):
 
 - the plain twin is the norms' eager code (and the GELU after
   ``LayerNormHWC``) bit for bit in float32, and within bf16 rounding of it
   in bfloat16, where the twin rounds once and the eager code at each step;
-- the op's CPU implementation is the twin, its fake implementation gives
-  the output's shape and dtype, and ``torch.export`` keeps the op in the
-  graph; the wrapper refuses inputs that need a gradient;
 - the call sites: a forward of the flagship's structure (8 decoder and 4
   EVT-Former layers, NPVP-S, at a tiny width) in eval mode under
   ``exec_mode "pallas"`` hands 60 ``LayerNormHWC`` and 66
-  ``TokenLayerNorm`` calls to the wrapper, with outputs bit-equal to the
-  eager norms' in float32; in training mode, under ``xla`` and ``int8``
-  and on a sequence-parallel shard it is never called.
-
-The tests reach the wrapper on the CPU by adding "cpu" to
-``layer_norm.DEVICES`` (the CUDA-only gate of the call sites).
+  ``TokenLayerNorm`` calls to the wrapper (whose CPU side is the twin),
+  with outputs bit-equal to the eager norms' in float32; a
+  sequence-parallel shard keeps the eager norm.
 """
 
 import collections
@@ -90,39 +86,9 @@ def test_twin_is_the_eager_norm(kind, act, dtype):
     assert gap.max() > 0  # the two roundings differ somewhere
 
 
-def test_op_cpu_and_fake_implementations():
-    from torch._subclasses.fake_tensor import FakeTensorMode
-
-    mod, x = _norm("hwc", BF16)
-    with torch.no_grad():
-        got = torch.ops.npvp.layer_norm(x, mod.weight, mod.bias, 1e-5,
-                                        torch.float32, "gelu_tanh")
-        want = ln.layer_norm_plain(x, mod.weight, mod.bias, 1e-5,
-                                   torch.float32, "gelu_tanh")
-    assert torch.equal(got, want)
-    with FakeTensorMode() as mode:
-        fx = mode.from_tensor(x)
-        fw, fb = mode.from_tensor(mod.weight), mode.from_tensor(mod.bias)
-        out = torch.ops.npvp.layer_norm(fx, fw, fb, 1e-5, torch.float32,
-                                        "none")
-    assert tuple(out.shape) == tuple(x.shape)
-    assert out.dtype == torch.float32
-
-
-def test_wrapper_refuses_autograd():
-    mod, x = _norm("token", torch.float32)
-    with pytest.raises(RuntimeError, match="no backward"):
-        ln.layer_norm(x, mod.weight, mod.bias, eps=1e-5,
-                      out_dtype=torch.float32)
-    with pytest.raises(RuntimeError, match="no backward"):
-        ln.layer_norm(x.requires_grad_(), mod.weight.detach(),
-                      mod.bias.detach(), eps=1e-5, out_dtype=torch.float32)
-
-
 @pytest.fixture
 def counted(monkeypatch):
-    """The call sites' gate opened to the CPU, and every call of the
-    wrapper counted by the norm that made it."""
+    """Every call of the wrapper, counted by the norm that made it."""
     calls = collections.Counter()
     real = ln.layer_norm
 
@@ -130,23 +96,8 @@ def counted(monkeypatch):
         calls["token" if weight.dim() == 1 else "hwc"] += 1
         return real(x, weight, bias, **kw)
 
-    monkeypatch.setattr(ln, "DEVICES", ("cuda", "cpu"))
     monkeypatch.setattr(ln, "layer_norm", counting)
     return calls
-
-
-def test_export_keeps_the_op(counted):
-    from npvp_tpu_torch.nn.vidhrformer import MlpDWBN
-
-    mlp = MlpDWBN(8, 16, 8, (4, 2), exec_mode="pallas").eval()
-    x = torch.randn(2, 3, 4, 2, 8, generator=torch.Generator().manual_seed(1))
-    with torch.no_grad():
-        program = torch.export.export(mlp, (x,))
-        want = mlp(x)
-    calls = [n for n in program.graph.nodes
-             if n.op == "call_function" and "layer_norm" in str(n.target)]
-    assert len(calls) == 3
-    assert torch.equal(program.module()(x), want)
 
 
 def _flagship_structure(exec_mode):
@@ -178,45 +129,45 @@ def _flagship_structure(exec_mode):
     return vp, frames, eps
 
 
-def test_flagship_forward_calls_the_wrapper_126_times(counted, monkeypatch):
+def test_flagship_forward_calls_the_wrapper_126_times(counted):
+    """The kernel path on the CPU against the same model with its norms in
+    ``exec_mode "xla"`` (the eager norms; every other module unchanged)."""
     vp, frames, eps = _flagship_structure("pallas")
     fn = vp.freeze_task(np.arange(10), np.arange(10, 20))
     launches = dict(ln.LAUNCHES)
     got = fn(frames, eps=eps)
     assert dict(counted) == {"hwc": 60, "token": 66}
     assert ln.LAUNCHES == launches  # the CPU launches nothing
-    monkeypatch.setattr(ln, "DEVICES", ("cuda",))
+    for m in vp.predictor.modules():
+        if isinstance(m, (tl.TokenLayerNorm, tl.LayerNormHWC)):
+            m.exec_mode = "xla"
     counted.clear()
     want = fn(frames, eps=eps)  # the eager norms
     assert not counted
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("mode", ["train", "xla", "int8"])
-def test_the_wrapper_is_never_called_off_the_kernel_path(counted, mode):
-    vp, frames, eps = _flagship_structure("xla" if mode == "xla" else
-                                          "int8" if mode == "int8" else
-                                          "pallas")
-    if mode == "train":
-        vp.predictor.train().requires_grad_(True)
-        feats = vp.ae.encode(frames)
-        from npvp_tpu_torch.models.coords import coordinate_grid
+def test_a_sequence_parallel_shard_keeps_the_eager_norm(counted,
+                                                       monkeypatch):
+    """The norms' condition beside ``kernel_path``: a pallas norm in eval
+    mode goes to the wrapper, but on a sequence-parallel shard (here an axis
+    of one rank, whose sum over the shards is the identity) it keeps the
+    eager code, whose statistics are summed over the shards; in training
+    mode ``kernel_path`` is shut."""
+    from npvp_tpu_torch.core.distributed import AxisShard
 
-        oc, tc = (coordinate_grid(np.arange(a, a + 10), vp.h_list,
-                                  vp.w_list, 20, 4, 4) for a in (0, 10))
-        out = vp.predictor(feats, oc, tc, eps, rng=tl.Rng(1))
-        out.pred_features.sum().backward()
-    else:
-        vp.predict(frames, np.arange(10), np.arange(10, 20), eps=eps)
-    assert not counted
-
-
-def test_a_sequence_parallel_shard_keeps_the_eager_norm(counted):
-    """The gate the norms consult before the wrapper: open for a pallas
-    norm in eval mode (the CPU let in), shut for any sequence-parallel
-    axis, whose statistics are summed over the shards in the eager code."""
+    monkeypatch.setattr(tl, "all_reduce_sum", lambda x, shard: x)
     for kind in ("token", "hwc"):
         mod, x = _norm(kind, torch.float32, exec_mode="pallas")
-        assert tl.norm_kernel_path(mod, x, None)
-        assert not tl.norm_kernel_path(mod, x, object())
-        assert not tl.norm_kernel_path(mod.train(), x, None)
+        with torch.no_grad():
+            assert tl.kernel_path(mod, x)
+            got = mod(x)
+            assert counted[kind] == 1
+            sharded = mod(x, sp=AxisShard(None, 0, 1))
+            assert counted[kind] == 1
+            mod.exec_mode = "xla"
+            want = mod(x)
+        assert torch.equal(got, want)
+        torch.testing.assert_close(sharded, want, atol=1e-6, rtol=0)
+        mod.exec_mode = "pallas"
+        assert not tl.kernel_path(mod.train(), x)

@@ -1,25 +1,20 @@
-"""The non-local attention kernel's wrapper, op and call sites, on the CPU
+"""The non-local attention kernel's twin and call site, on the CPU
 (``npvp_tpu_torch/kernels/nonlocal_attention.py``; the kernel itself runs on
-the card, ``tests/test_torch_nonlocal_attention_cuda.py``):
+the card, ``tests/test_torch_nonlocal_attention_cuda.py``; its op, wrapper
+and the kernel-path rule with the other kernels' in
+``tests/test_torch_kernel_seam.py``):
 
 - the plain twin, which the module's eager path calls, is the module's
   former eager code bit for bit, at one width per (a, dv) class, in float32
   and bfloat16;
-- the op's CPU implementation is the twin, its fake implementation gives
-  the output's shape and dtype, ``torch.export`` keeps the op in the graph,
-  and the wrapper refuses an input that needs a gradient;
-- the gate: the module hands the wrapper its ``qkv`` only under
-  ``exec_mode "pallas"``, in eval mode, for a bf16 tensor on a device of
-  ``DEVICES`` that needs no gradient, and a width the kernel does not take
-  reaches the wrapper too, whose kernel side raises on it; a
-  Cityscapes-structured encode makes 6 calls a window and a KTH-structured
-  one 4, with outputs bit-equal to the twin's (the op's CPU side); a
-  stage-2 train step makes none under "xla" and some under "pallas";
+- the shapes the kernel takes, and its side raising on the others;
+- the call site: a width the kernel does not take reaches the wrapper too
+  (whose CPU side is the twin); a Cityscapes-structured encode makes 6
+  calls a window and a KTH-structured one 4, with outputs bit-equal to the
+  twin's; a stage-2 train step makes none under "xla" and some under
+  "pallas";
 - ``build_ae`` reads ``cfg.Predictor.exec_mode``, ``VideoPredictor``'s
   override reaches the AE, and the state dict is the same whatever the mode.
-
-The tests reach the wrapper on the CPU by adding "cpu" to
-``nonlocal_attention.DEVICES`` (the CUDA-only gate of the module).
 """
 
 import collections
@@ -117,28 +112,6 @@ def test_twin_keeps_an_odd_edge_out_of_the_keys():
     assert bool((out.float() <= hi + 0.02 * hi.abs()).all())
 
 
-def test_op_cpu_and_fake_implementations():
-    from torch._subclasses.fake_tensor import FakeTensorMode
-
-    a = 16
-    qkv = _input((2, 6, 4, 6 * a), BF16, seed=1)
-    with torch.no_grad():
-        got = torch.ops.npvp.nonlocal_attention(qkv, a)
-    assert torch.equal(got, nla.nonlocal_attention_plain(qkv, a))
-    with FakeTensorMode() as mode:
-        out = torch.ops.npvp.nonlocal_attention(mode.from_tensor(qkv), a)
-    assert tuple(out.shape) == (2, 6, 4, 4 * a)
-    assert out.dtype == BF16
-
-
-def test_wrapper_refuses_autograd():
-    qkv = _input((1, 4, 4, 48), BF16).requires_grad_()
-    with pytest.raises(RuntimeError, match="no backward"):
-        nla.nonlocal_attention(qkv, 8)
-    with torch.no_grad():  # no gradient asked: the op's CPU side
-        assert nla.nonlocal_attention(qkv, 8).shape == (1, 4, 4, 32)
-
-
 @pytest.mark.parametrize("shape,attn_dim,ok", [
     ((256, 64, 64, 48), 8, True),       # Cityscapes' first level
     ((640, 32, 32, 96), 16, True),      # KTH's first level
@@ -157,8 +130,7 @@ def test_the_kernel_takes_every_level_of_the_three_aes(shape, attn_dim, ok):
 
 @pytest.fixture
 def counted(monkeypatch):
-    """The module's gate opened to the CPU, and every call of the wrapper
-    counted by its query count H·W."""
+    """Every call of the wrapper, counted by its query count H·W."""
     calls = collections.Counter()
     real = nla.nonlocal_attention
 
@@ -166,52 +138,13 @@ def counted(monkeypatch):
         calls[qkv.shape[1] * qkv.shape[2]] += 1
         return real(qkv, attn_dim)
 
-    monkeypatch.setattr(nla, "DEVICES", ("cuda", "cpu"))
     monkeypatch.setattr(nla, "nonlocal_attention", counting)
     return calls
 
 
-@pytest.mark.parametrize("case", ["xla", "int8", "train", "grad", "fp32",
-                                  "cpu"])
-def test_the_wrapper_is_never_called_off_the_kernel_path(counted, case,
-                                                         monkeypatch):
-    mode = case if case in ("xla", "int8") else "pallas"
-    dtype = torch.float32 if case == "fp32" else BF16
-    mod = _module(64, dtype, exec_mode=mode)
-    x = _input((2, 4, 4, 64), dtype)
-    if case == "cpu":
-        monkeypatch.setattr(nla, "DEVICES", ("cuda",))
-    launches = dict(nla.LAUNCHES)
-    if case == "train":
-        mod.train()
-    if case == "grad":
-        mod.requires_grad_(True)
-        mod(x).sum().backward()
-    else:
-        with torch.no_grad():
-            mod(x)
-    assert not counted
-    assert nla.LAUNCHES == launches
-
-
-def test_the_kernel_path_calls_the_wrapper(counted):
-    mod = _module(64, BF16, exec_mode="pallas")
-    x = _input((2, 4, 6, 64), BF16)
-    launches = dict(nla.LAUNCHES)
-    with torch.no_grad():
-        got = mod(x)
-        want = _former_eager_forward(mod, x)
-    assert dict(counted) == {24: 1}
-    assert nla.LAUNCHES == launches  # the CPU launches nothing
-    assert torch.equal(got, want)  # the op's CPU side is the twin
-    # grad mode on, but nothing needs a gradient: still the kernel path
-    mod(x)
-    assert dict(counted) == {24: 2}
-
-
 def test_a_width_the_kernel_does_not_take_reaches_the_wrapper(counted):
-    """The gate does not look at the shape: a = 2 (C = 16) on the kernel
-    path goes to the wrapper, whose CPU side is the twin."""
+    """The kernel path does not look at the shape: a = 2 (C = 16) on it
+    goes to the wrapper, whose CPU side is the twin."""
     mod = _module(16, BF16, exec_mode="pallas")
     x = _input((2, 4, 4, 16), BF16)
     with torch.no_grad():
@@ -234,18 +167,6 @@ def test_the_kernel_side_raises_on_a_shape_it_does_not_take(shape,
     with pytest.raises(ValueError, match="unsupported shape"):
         nla.launch(qkv, attn_dim)
     assert nla.LAUNCHES == launches
-
-
-def test_export_keeps_the_op(counted):
-    mod = _module(64, BF16, exec_mode="pallas")
-    x = _input((1, 4, 4, 64), BF16)
-    with torch.no_grad():
-        program = torch.export.export(mod, (x,))
-        want = mod(x)
-    calls = [n for n in program.graph.nodes if n.op == "call_function"
-             and "nonlocal_attention" in str(n.target)]
-    assert len(calls) == 1
-    assert torch.equal(program.module()(x), want)
 
 
 def _ae_config(kind, exec_mode):

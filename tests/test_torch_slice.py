@@ -19,7 +19,6 @@ import numpy as np  # noqa: E402
 from _torch_helpers import (port_config, random_variables,  # noqa: E402
                             tiny_config)
 
-from npvp_tpu_torch.kernels import temporal_attention as tta  # noqa: E402
 from npvp_tpu_torch.models.inference import VideoPredictor  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -68,11 +67,9 @@ def test_slice_matches_jax(monkeypatch, stochastic):
     np.testing.assert_allclose(got.numpy(), want, atol=1e-3, rtol=0)
 
 
-@pytest.mark.parametrize("fuse", [True, False])
-def test_kernel_exec_mode_matches_plain_mode(monkeypatch, fuse):
-    """exec_mode="pallas" (the kernel wrapper) ≡ "xla" (plain attention) on
-    one parameter set, both FUSE_OPROJ settings."""
-    monkeypatch.setattr(tta, "FUSE_OPROJ", fuse)
+def test_kernel_exec_mode_matches_plain_mode():
+    """exec_mode="pallas" (the kernel wrappers) ≡ "xla" (plain attention
+    and eager norms) on one parameter set."""
     cfg = port_config(tiny_config(True))
     frames = np.random.default_rng(1).uniform(-1, 1, (2, 4, 32, 32, 1))
     outs = [VideoPredictor.from_random_init(

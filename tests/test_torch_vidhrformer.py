@@ -16,7 +16,6 @@ from _torch_helpers import random_variables  # noqa: E402
 
 from npvp_tpu.kernels import temporal_attention as jta  # noqa: E402
 from npvp_tpu.nn import vidhrformer as jv  # noqa: E402
-from npvp_tpu_torch.kernels import temporal_attention as tta  # noqa: E402
 from npvp_tpu_torch.nn import vidhrformer as tv  # noqa: E402
 from npvp_tpu_torch.tools.weights import load_flax  # noqa: E402
 
@@ -185,13 +184,12 @@ def test_decoder_block(affine):
 @pytest.mark.parametrize("fuse", [True, False])
 def test_stacks_with_kernel_match_jax_pallas(monkeypatch, fuse):
     """Encoder and decoder stacks on the affine path with exec_mode="pallas":
-    the port (kernel wrapper → plain twin on the CPU) against JAX (the
-    Pallas kernel in interpret mode, BLOCK_SITES shrunk so it engages),
-    both FUSE_OPROJ settings; the decoder includes the cross-layer k/v
-    hoist."""
+    the port (kernel wrapper → plain twin on the CPU, the output projection
+    always fused) against JAX (the Pallas kernel in interpret mode,
+    BLOCK_SITES shrunk so it engages), both of JAX's FUSE_OPROJ settings;
+    the decoder includes the cross-layer k/v hoist."""
     monkeypatch.setattr(jta, "BLOCK_SITES", 8)
     monkeypatch.setattr(jta, "FUSE_OPROJ", fuse)
-    monkeypatch.setattr(tta, "FUSE_OPROJ", fuse)
     kw = dict(window_size=2, ffn_hidden_ratio=2, dim_feedforward=64,
               affine_posfuse=True, exec_mode="pallas")
     x, beta, gamma = _enc_args(4, 4)
