@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py [--phases 1,2]
 
-Builds the temporal-attention, LayerNorm and non-local attention kernels
-from ``npvp_tpu_torch/kernels/csrc`` with nvcc, then runs seventeen phases
+Builds the temporal-attention, LayerNorm, non-local attention and
+decoder-tail kernels from ``npvp_tpu_torch/kernels/csrc`` with nvcc, then
+runs eighteen phases
 (all of them by default; ``--phases`` picks some, for a short check), each
 printing its own lines:
 
@@ -198,6 +199,18 @@ printing its own lines:
    Cityscapes window's encode on the kernel path and on the twin path (ms,
    peak memory); no launch in a SMMNIST Unified NPVP-S train step as its
    YAML stands (exec_mode xla).
+18. the decoder-tail kernel (the AE decoder's last BatchNorm and ReLU,
+   reflect pad, 7x7 head, bias and activation, bf16): its one call in a
+   Cityscapes window's decode (128 clips x 10 frames, 1280 x 128² x 32 ->
+   3; three in a 2 -> 28 request) and in a KTH batch-64 forward (640 x
+   64² x 64 -> 1), each on the call's own input with the BatchNorms'
+   statistics and the head's bias away from their init: the kernel held to its twin by the CUDA tests' bound,
+   kernel ms (CUDA-graph replays), the twin's ms (the former eager tail)
+   and the library's (cuDNN's convolution alone on the padded input, which
+   the port no longer calls), beside the bound (bytes and FLOPs); a
+   Cityscapes window's decode on the kernel and the twin path (ms, peak
+   memory, the profiled kernels of each); no launch in a SMMNIST Unified
+   NPVP-S train step as its YAML stands (exec_mode xla).
 
 The phases run in a child process; this one exits with its code once every
 process the run started has ended (see ``supervise``). Any failure exits
@@ -409,11 +422,12 @@ def phase_environment(torch, ta):
     nvcc = subprocess.run([nvcc_path(), "--version"], capture_output=True,
                           text=True, timeout=60)
     print("nvcc:", nvcc.stdout.strip().splitlines()[-1])
+    from npvp_tpu_torch.kernels import decoder_head as dh
     from npvp_tpu_torch.kernels import layer_norm as ln
     from npvp_tpu_torch.kernels import nonlocal_attention as nla
 
     for what, mod in (("kernel", ta), ("layer-norm kernel", ln),
-                      ("non-local kernel", nla)):
+                      ("non-local kernel", nla), ("decoder-tail kernel", dh)):
         lib = mod.LIB.build()
         print(f"{what} build: {mod.LIB.info.get('seconds', 0.0):.1f} s -> "
               f"{Path(lib).relative_to(HERE)}")
@@ -4135,12 +4149,243 @@ def phase_nonlocal(torch, ta):
     return result
 
 
+def _head_calls(torch, fn):
+    """The decoder-tail kernel's calls as ``fn`` makes them: each call's
+    arguments (``y`` copied)."""
+    from npvp_tpu_torch.kernels import decoder_head as dh
+
+    calls, real = [], dh.launch
+
+    def recording(y, *args):
+        calls.append((y.clone(), *args))
+        return real(y, *args)
+
+    dh.launch = recording
+    try:
+        with torch.no_grad():
+            fn()
+        torch.cuda.synchronize()
+    finally:
+        dh.launch = real
+    return calls
+
+
+def _head_gap(torch, got, call):
+    """(largest |kernel - twin|, largest gap over the CUDA tests' bound
+    2^-7·(|c| + |v|) + 2^-8 + 2^-12, share of elements not bit-equal):
+    ``c`` the twin's rounded convolution, ``v`` = c + bias rounded; a
+    quarter of the frames at a time, for the twin's temporaries."""
+    import torch.nn.functional as F
+
+    from npvp_tpu_torch.kernels import decoder_head as dh
+
+    y, a, b, w, c, act = call
+    step = max(1, y.shape[0] // 4)
+    gap = ratio = unequal = 0.0
+    for s in range(0, y.shape[0], step):
+        part = (y[s:s + step], a, b, w, c, act)
+        x = dh.reflect_pad_2d(torch.relu(part[0] * a + b), 3)
+        conv = F.conv2d(x.permute(0, 3, 1, 2), w).permute(0, 2, 3, 1)
+        v = (conv + c).float()
+        d = (got[s:s + step].float()
+             - dh.decoder_head_plain(*part).float()).abs()
+        bound = 2 ** -7 * (conv.float().abs() + v.abs()) + 2 ** -8 + 2 ** -12
+        gap = max(gap, float(d.max()))
+        ratio = max(ratio, float((d / bound).max()))
+        unequal += float((d > 0).float().sum())
+    return gap, ratio, unequal / got.numel()
+
+
+def _head_timing(torch, call, what):
+    """One call of the kernel held to its twin by the CUDA tests' bound and
+    timed (CUDA-graph replays) beside its bound (bytes: y read and the
+    output written once; FLOPs of the 7x7 head), the plain twin (the former
+    eager tail) and the library: cuDNN's convolution alone on the padded
+    input, which the port no longer calls."""
+    import torch.nn.functional as F
+
+    from npvp_tpu_torch.kernels import decoder_head as dh
+
+    y, a, b, w, c, act = call
+    N, H, W, C = y.shape
+    co = w.shape[0]
+    saved = dict(dh.LAUNCHES)
+    with torch.no_grad():
+        gap, ratio, unequal = _head_gap(torch, dh.launch(*call), call)
+        k_ms = time_graph(torch, lambda: dh.launch(*call))
+        p_ms = time_call(torch, lambda: dh.decoder_head_plain(*call), n=5)
+        xp = dh.reflect_pad_2d(torch.relu(y * a + b), 3).permute(0, 3, 1, 2)
+        l_ms = time_call(torch, lambda: F.conv2d(xp, w, c), n=5)
+        del xp
+    dh.LAUNCHES.clear()
+    dh.LAUNCHES.update(saved)  # timing is not the path's run
+    nbytes = N * H * W * (C + co) * 2
+    flops = 2 * N * H * W * C * co * 49
+    bound = 1e3 * max(nbytes / PEAK_BYTES_S, flops / PEAK_FLOPS["bfloat16"])
+    print(f"{what} {N} x {H}x{W}, {C} -> {co} ({act}): kernel {k_ms:.4f} ms, "
+          f"plain {p_ms:.4f} ms, library (cuDNN conv alone) {l_ms:.4f} ms, "
+          f"bound {bound:.4f} ms ({nbytes / 1e9:.3f} GB, "
+          f"{flops / 1e12:.3f} TFLOP), kernel/bound {k_ms / bound:.2f}; "
+          f"max|d| to the twin {gap:.3e}, largest gap over its bound "
+          f"{ratio:.3f}, share not bit-equal {unequal:.2e}")
+    check(ratio <= 1.0, f"{what}: the kernel is off its twin by {ratio:.3f} "
+          "of the CUDA tests' bound")
+    return dict(shape=[N, H, W, C, co], out_layer=act, ms=k_ms,
+                plain_ms=p_ms, library_ms=l_ms, bound_ms=bound, max_abs=gap,
+                gap_over_bound=ratio, share_unequal=unequal)
+
+
+def _perturb_tail(torch, decoder, seed):
+    """Every BatchNorm's running statistics and the head's bias away from
+    their init values."""
+    from npvp_tpu_torch.nn.layers import BatchNorm
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    with torch.no_grad():
+        for m in decoder.modules():
+            if isinstance(m, BatchNorm):
+                c = m.running_mean.numel()
+                m.running_mean.copy_(0.1 * torch.randn(c, generator=g,
+                                                       device="cuda"))
+                m.running_var.copy_(1 + 0.2 * torch.rand(c, generator=g,
+                                                         device="cuda"))
+        h = decoder.head.bias
+        h.copy_(0.2 * torch.randn(h.shape, generator=g, device="cuda"))
+
+
+def phase_decoder_head(torch, ta):
+    """The decoder-tail kernel at the main path's shapes: its call in a
+    Cityscapes window's decode (128 clips x 10 frames; three a request) and
+    in a KTH batch-64 forward, held to the twin and timed against it, the library
+    and the bound; a window's decode on the kernel and the twin path (ms,
+    peak memory, profiled kernels); no launch in a SMMNIST Unified NPVP-S
+    train step as its YAML stands (exec_mode xla)."""
+    import numpy as np
+
+    from npvp_tpu_torch.data.loader import DataModule
+    from npvp_tpu_torch.kernels import decoder_head as dh
+    from npvp_tpu_torch.models.inference import VideoPredictor
+    from npvp_tpu_torch.models.predictor import build_predictor
+    from npvp_tpu_torch.nn.layers import Rng
+    from npvp_tpu_torch.train import stage2_predictor as s2
+
+    result = {}
+    cfg = smoke_config("Cityscapes_VFP_NPVP-S", ["Predictor.exec_mode=pallas"])
+    p = cfg.Predictor
+    vp = VideoPredictor.from_random_init(cfg, torch.bfloat16, seed=0,
+                                         device="cuda")
+    dec = vp.ae.decoder
+    _perturb_tail(torch, dec, 18)
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    feats = torch.relu(torch.randn((128, 10, p.max_H, p.max_W, p.embed_dim),
+                                   generator=gen, device="cuda"))
+    dh.LAUNCHES.clear()
+    calls = _head_calls(torch, lambda: vp.ae.decode(feats))
+    window = dict(dh.LAUNCHES)
+    print(f"Cityscapes window decode (128 x 10 frames): launches {window}; "
+          f"y contiguous as the decoder hands it: "
+          f"{calls[0][0].is_contiguous()}")
+    check(window == {128 * 128: 1},
+          f"a Cityscapes window's decode made {window}, not 1 call")
+    result["cityscapes"] = _head_timing(torch, calls[0], "Cityscapes")
+    result["cityscapes"]["launches_per_window"] = sum(window.values())
+    del calls
+    frames = torch.rand((128, 2, 128, 128, 3), generator=gen,
+                        device="cuda") * 2 - 1
+    eps = [torch.randn((128, p.max_H, p.max_W, p.embed_dim), generator=gen,
+                       device="cuda") for _ in range(3)]
+    dh.LAUNCHES.clear()
+    with torch.no_grad():
+        vp.vfp(frames, 28, eps=eps)
+    torch.cuda.synchronize()
+    request = dict(dh.LAUNCHES)
+    print(f"Cityscapes request (128 clips, 2 -> 28, three windows): "
+          f"launches {request}")
+    check(request == {128 * 128: 3},
+          f"a Cityscapes request made {request}, not 3 calls")
+    result["cityscapes"]["launches_per_request"] = sum(request.values())
+    del frames, eps
+    decode = {}
+    for mode in ("pallas", "xla", "pallas", "xla"):
+        dec.exec_mode = mode
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        with torch.no_grad():
+            ms = time_call(torch, lambda: vp.ae.decode(feats), n=5)
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        decode.setdefault(mode, []).append((ms, peak))
+    for mode, runs in decode.items():
+        print(f"Cityscapes window decode on the "
+              f"{'kernel' if mode == 'pallas' else 'twin'} path: "
+              f"{[round(ms, 3) for ms, _ in runs]} ms, peak above the "
+              f"weights {[round(g, 3) for _, g in runs]} GiB")
+    result["cityscapes"]["decode_ms"] = {
+        ("kernel" if k == "pallas" else "twin"): min(ms for ms, _ in v)
+        for k, v in decode.items()}
+    result["cityscapes"]["decode_peak_gib"] = {
+        ("kernel" if k == "pallas" else "twin"): max(g for _, g in v)
+        for k, v in decode.items()}
+    for mode in ("xla", "pallas"):
+        dec.exec_mode = mode
+        with torch.no_grad():
+            profile(torch, lambda: vp.ae.decode(feats),
+                    f"Cityscapes window decode, "
+                    f"{'kernel' if mode == 'pallas' else 'twin'} path")
+    del vp, dec, feats
+    torch.cuda.empty_cache()
+
+    cfg = smoke_config("KTH_Unified_NPVP-S", ["Predictor.exec_mode=pallas"])
+    p, d = cfg.Predictor, cfg.Dataset
+    vp = VideoPredictor.from_random_init(cfg, torch.bfloat16, seed=0,
+                                         device="cuda")
+    _perturb_tail(torch, vp.ae.decoder, 19)
+    fn = vp.freeze_task(np.arange(10), np.arange(10, 20))
+    frames = torch.rand((64, 10, d.img_size, d.img_size, d.img_channels),
+                        generator=gen, device="cuda") * 2 - 1
+    eps = torch.randn((64, p.max_H, p.max_W, p.embed_dim), generator=gen,
+                      device="cuda")
+    dh.LAUNCHES.clear()
+    calls = _head_calls(torch, lambda: fn(frames, eps=eps))
+    forward = dict(dh.LAUNCHES)
+    print(f"KTH forward (batch 64, 10 -> 10): launches {forward}")
+    check(forward == {64 * 64: 1}, f"a KTH forward made {forward}, not 1")
+    result["kth"] = _head_timing(torch, calls[0], "KTH")
+    result["kth"]["launches_per_forward"] = sum(forward.values())
+    del calls, vp, fn
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = smoke_config("SMMNIST_Unified_NPVP-S", [
+            f"Predictor.ckpt_save_dir={tmp}/ckpt",
+            f"Predictor.tensorboard_save_dir={tmp}/log",
+            "Dataset.dev_set_size=8"])
+        cfg.Predictor.resume_AE_ckpt = str(s2.write_random_ae(cfg, tmp))
+        dtype, dev = s2.compute_dtype(cfg), torch.device("cuda")
+        ae = s2.load_frozen_ae(cfg, dtype, dev)
+        steps = s2.make_steps(cfg, ae, "rand_context", dev)
+        state = s2.init_predictor_state(
+            cfg, build_predictor(cfg, dtype).to(dev), 1)
+        batch = steps.place(next(iter(DataModule(cfg).train_loader(
+            "rand_context"))))
+        before = sum(dh.LAUNCHES.values())
+        steps.train(state, batch, Rng(1))
+        torch.cuda.synchronize()
+        train = sum(dh.LAUNCHES.values()) - before
+    print(f"SMMNIST Unified NPVP-S train step (exec_mode "
+          f"{cfg.Predictor.exec_mode}): {train} decoder-tail launches")
+    check(train == 0, f"a SMMNIST train step made {train} decoder-tail calls")
+    result["smmnist_train_step_launches"] = train
+    print("decoder_head " + json.dumps(result))
+    return result
+
+
 def main(argv) -> int:
     import argparse
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases", help="comma-separated phase numbers "
-                        "(1-17) for a short check; the default runs all and "
+                        "(1-18) for a short check; the default runs all and "
                         "prints the record")
     args = parser.parse_args(argv)
     picked = (None if args.phases is None
@@ -4188,7 +4433,8 @@ def main(argv) -> int:
               ("report tools", phase_reports),
               ("checkpoints", phase_checkpoints),
               ("layer-norm kernel", phase_layer_norm),
-              ("non-local attention kernel", phase_nonlocal)]
+              ("non-local attention kernel", phase_nonlocal),
+              ("decoder-tail kernel", phase_decoder_head)]
     if picked is not None:
         phases = [ph for i, ph in enumerate(phases, 1) if i in picked]
     WORK["dir"] = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -4345,6 +4591,22 @@ def main(argv) -> int:
         "times": "per Cityscapes window's encode (128 clips x 2 frames): "
                  "the sum over its 6 calls, bf16",
         "per_call": city["per_call"] + kth["per_call"]})
+    tail = results["decoder-tail kernel"]
+    city, kth = tail["cityscapes"], tail["kth"]
+    kernels.append({
+        "name": "decoder_head", "route": "cuda",
+        "source": "npvp_tpu_torch/kernels/csrc/decoder_head.cu",
+        "replaces": None, "launches": city["launches_per_window"],
+        "max_abs_err": max(city["max_abs"], kth["max_abs"]),
+        **{k: city[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+        "decode_ms": city["decode_ms"],
+        "decode_peak_gib": city["decode_peak_gib"],
+        "kth_forward": {"launches": kth["launches_per_forward"],
+                        **{k: kth[k] for k in ("ms", "plain_ms", "bound_ms",
+                                               "library_ms")}},
+        "smmnist_train_step_launches": tail["smmnist_train_step_launches"],
+        "times": "per Cityscapes window's decode (128 clips x 10 frames): "
+                 "its one call, bf16"})
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

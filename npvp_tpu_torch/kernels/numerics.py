@@ -4,6 +4,7 @@ kept below both (``nn.layers`` re-exports them)."""
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 
 def fp32_moments(x, dims, keepdim: bool = True):
@@ -23,3 +24,11 @@ def softmax_f32_stats(logits, dims):
     lmax = logits.amax(dim=dims, keepdim=True)
     e = torch.exp((logits - lmax).float())
     return (e / e.sum(dim=dims, keepdim=True)).to(logits.dtype)
+
+
+def reflect_pad_2d(x, pad: int):
+    """Reflection-pad the (H, W) axes of an (..., H, W, C) tensor."""
+    lead = x.shape[:-3]
+    y = x.reshape((-1,) + x.shape[-3:]).permute(0, 3, 1, 2)
+    y = F.pad(y, (pad, pad, pad, pad), mode="reflect").permute(0, 2, 3, 1)
+    return y.reshape(lead + y.shape[1:])

@@ -30,7 +30,7 @@ from npvp_tpu_torch.core.distributed import (all_reduce_sum, copy_to_model,
 from npvp_tpu_torch.core.sequence_parallel import sp_param, span
 from npvp_tpu_torch.kernels import layer_norm as ln_kernel
 from npvp_tpu_torch.kernels.numerics import (  # noqa: F401 (re-exported)
-    fp32_moments, softmax_f32_stats)
+    fp32_moments, reflect_pad_2d, softmax_f32_stats)
 from npvp_tpu_torch.nn.quant import int8_contract
 
 
@@ -267,7 +267,10 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
 
-    def forward(self, x):
+    def scale_shift(self, x):
+        """The per-channel ``(a, b)`` of ``x·a + b`` in the compute dtype:
+        from the running statistics in eval mode; in training mode from
+        ``x``'s batch statistics, moving the running ones toward them."""
         if self.training:
             dims = tuple(range(x.dim() - 1))
             if self.sync is None:
@@ -289,7 +292,11 @@ class BatchNorm(nn.Module):
             mean, var = self.running_mean, self.running_var
         a = self.weight * torch.rsqrt(var + self.eps)
         b = self.bias - mean * a
-        return x.to(self.dtype) * a.to(self.dtype) + b.to(self.dtype)
+        return a.to(self.dtype), b.to(self.dtype)
+
+    def forward(self, x):
+        a, b = self.scale_shift(x)
+        return x.to(self.dtype) * a + b
 
 
 def sync_batchnorm(module: nn.Module, data_axis) -> nn.Module:
@@ -302,17 +309,20 @@ def sync_batchnorm(module: nn.Module, data_axis) -> nn.Module:
     return module
 
 
-def kernel_path(module: nn.Module, x) -> bool:
+def kernel_path(module: nn.Module, x, *more) -> bool:
     """Whether ``module`` hands ``x`` to its hand-written kernel (the
-    attention's, a norm's, the AE's non-local attention's): ``exec_mode
-    "pallas"``, eval mode, and nothing that needs a gradient — ``x``, or
-    the module's own parameters (a norm's affine) — while autograd records,
-    for the kernels have no backward. On any device: the kernel's wrapper
-    launches it on a CUDA tensor and runs its plain twin on a CPU one. The
-    rest (training, the xla and int8 modes, a forward under autograd) runs
-    the eager code, which the JAX parity tests hold."""
+    attention's, a norm's, the AE's non-local attention's, the AE decoder's
+    tail's): ``exec_mode "pallas"``, eval mode, and nothing that needs a
+    gradient — ``x``, the other inputs ``more`` (the decoder tail's affine
+    and head, cast from its submodules' parameters), or the module's own
+    parameters (a norm's affine) — while autograd records, for the kernels
+    have no backward. On any device: the kernel's wrapper launches it on a
+    CUDA tensor and runs its plain twin on a CPU one. The rest (training,
+    the xla and int8 modes, a forward under autograd) runs the eager code,
+    which the JAX parity tests hold."""
     return (module.exec_mode == "pallas" and not module.training
-            and not (torch.is_grad_enabled() and (x.requires_grad or any(
+            and not (torch.is_grad_enabled() and (any(
+                t.requires_grad for t in (x, *more)) or any(
                 p.requires_grad for p in module.parameters(False)))))
 
 
@@ -415,14 +425,6 @@ class DropPath(nn.Module):
         shape = (x.shape[0],) + (1,) * (x.dim() - 1)
         keep = _need(rng, "DropPath").bernoulli(shape, keep_prob, x.device)
         return x * (keep / keep_prob).to(x.dtype)
-
-
-def reflect_pad_2d(x, pad: int):
-    """Reflection-pad the (H, W) axes of an (..., H, W, C) tensor."""
-    lead = x.shape[:-3]
-    y = x.reshape((-1,) + x.shape[-3:]).permute(0, 3, 1, 2)
-    y = F.pad(y, (pad, pad, pad, pad), mode="reflect").permute(0, 2, 3, 1)
-    return y.reshape(lead + y.shape[1:])
 
 
 class ConvBNAct(nn.Module):

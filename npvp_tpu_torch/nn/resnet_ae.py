@@ -18,9 +18,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from npvp_tpu_torch.core.tracing import span
+from npvp_tpu_torch.kernels import decoder_head as dh
 from npvp_tpu_torch.kernels import nonlocal_attention as nla
-from npvp_tpu_torch.nn.layers import (BatchNorm, ConvBNAct, conv_nhwc,
-                                      kernel_path, linear, reflect_pad_2d,
+from npvp_tpu_torch.nn.layers import (BatchNorm, ConvBNAct, kernel_path,
+                                      linear, reflect_pad_2d,
                                       softmax_f32_stats)
 from npvp_tpu_torch.nn.upsample import (subpixel_conv_same,
                                         subpixel_conv_transpose_3x3_s2)
@@ -197,18 +198,28 @@ class ResnetDecoder(nn.Module):
     2×2 sub-pixel convolution, ``s2d_head`` the head as a stride-4
     sub-pixel convolution where the padded frame side is 2 mod 4 (with a
     warning, the direct head where it is not); same parameters either
-    way."""
+    way. The tail (the last upsampling's BatchNorm and ReLU, the reflect
+    pad, the direct head and its activation) is one ``npvp.ae.head`` span;
+    on :func:`~npvp_tpu_torch.nn.layers.kernel_path`, for bf16, the
+    hand-written kernel's wrapper (``kernels/decoder_head.py``) computes it,
+    elsewhere its plain twin, the eager code, does. A shape the kernel does
+    not take raises in the wrapper: it does not fall back. ``exec_mode`` is
+    a plain attribute, not state."""
 
     def __init__(self, out_channels: int = 1, ngf: int = 64,
                  n_downsampling: int = 3, out_layer: str = "Tanh",
                  subpixel: bool = False, s2d_head: bool = False,
-                 dtype=torch.float32):
+                 dtype=torch.float32, exec_mode: str = "xla"):
         super().__init__()
         if out_layer not in ("Tanh", "Sigmoid"):
             raise ValueError(f"unsupported out_layer {out_layer!r}")
+        if n_downsampling < 1:
+            raise ValueError(f"n_downsampling {n_downsampling}: the tail "
+                             "needs an upsampling's BatchNorm")
         self.n_downsampling, self.out_layer, self.dtype = (
             n_downsampling, out_layer, dtype)
         self.subpixel, self.s2d_head = subpixel, s2d_head
+        self.exec_mode = exec_mode
         c = ngf * 2 ** n_downsampling
         for i in range(n_downsampling):
             feats = ngf * 2 ** (n_downsampling - i) // 2
@@ -231,26 +242,41 @@ class ResnetDecoder(nn.Module):
                 y = F.conv_transpose2d(x.permute(0, 3, 1, 2),
                                        up.weight.to(dt), None, 2, 1,
                                        1).permute(0, 2, 3, 1)
-            x = torch.relu(getattr(self, f"up{i}_bn")(y))
-        x = reflect_pad_2d(x, 3)
-        s2d_ok = x.shape[1] % 4 == x.shape[2] % 4 == 2
+            if i < self.n_downsampling - 1:
+                x = torch.relu(getattr(self, f"up{i}_bn")(y))
+        with span("npvp.ae.head"):
+            x = self._tail(y)
+        return x.reshape((N, T) + x.shape[1:])
+
+    def _tail(self, y):
+        """Frames from the last upsampling's raw output ``y``."""
+        dt = self.dtype
+        bn = getattr(self, f"up{self.n_downsampling - 1}_bn")
+        a, b = bn.scale_shift(y)
+        weight, bias = self.head.weight.to(dt), self.head.bias.to(dt)
+        s2d_ok = (y.shape[1] + 6) % 4 == (y.shape[2] + 6) % 4 == 2
         if self.s2d_head and not s2d_ok:
             warnings.warn(
                 f"AE.s2d_head requested but padded spatial shape "
-                f"{x.shape[1]}x{x.shape[2]} is not 2 mod 4 (img_size must be "
-                "divisible by 4); using the direct 7x7 head", stacklevel=2)
+                f"{y.shape[1] + 6}x{y.shape[2] + 6} is not 2 mod 4 (img_size "
+                "must be divisible by 4); using the direct 7x7 head",
+                stacklevel=3)
         if self.s2d_head and s2d_ok:
-            x = subpixel_conv_same(x, self.head.weight.to(dt),
-                                   self.head.bias.to(dt), factor=4)
-        else:
-            x = conv_nhwc(x, self.head, dt)
-        x = torch.tanh(x) if self.out_layer == "Tanh" else torch.sigmoid(x)
-        return x.reshape((N, T) + x.shape[1:])
+            x = reflect_pad_2d(torch.relu(y.to(dt) * a + b), 3)
+            x = subpixel_conv_same(x, weight, bias, factor=4)
+            return torch.tanh(x) if self.out_layer == "Tanh" else (
+                torch.sigmoid(x))
+        if y.dtype == torch.bfloat16 and kernel_path(self, y, a, b, weight,
+                                                     bias):
+            return dh.decoder_head(y.contiguous(), a, b, weight, bias,
+                                   self.out_layer)
+        return dh.decoder_head_plain(y, a, b, weight, bias, self.out_layer)
 
 
 class FrameAutoEncoder(nn.Module):
     """Encoder + decoder pair (``encoder``/``decoder`` as in flax);
-    ``exec_mode`` goes to the encoder's non-local attentions."""
+    ``exec_mode`` goes to the encoder's non-local attentions and the
+    decoder's tail."""
 
     def __init__(self, img_channels: int = 1, ngf: int = 64,
                  n_downsampling: int = 3, num_res_blocks: int = 2,
@@ -263,7 +289,7 @@ class FrameAutoEncoder(nn.Module):
                                      exec_mode=exec_mode)
         self.decoder = ResnetDecoder(img_channels, ngf, n_downsampling,
                                      out_layer, s2d_head=s2d_head,
-                                     dtype=dtype)
+                                     dtype=dtype, exec_mode=exec_mode)
 
     def forward(self, x):
         feats = self.encoder(x)
@@ -282,7 +308,7 @@ def build_ae(cfg, dtype=torch.float32,
              exec_mode: Optional[str] = None) -> FrameAutoEncoder:
     """FrameAutoEncoder from a Config; ``exec_mode`` overrides
     ``cfg.Predictor.exec_mode`` as in ``build_predictor`` ("pallas": the
-    non-local attentions' kernel in eval mode)."""
+    non-local attentions' and the decoder tail's kernels in eval mode)."""
     return FrameAutoEncoder(
         img_channels=cfg.Dataset.img_channels, ngf=cfg.AE.ngf,
         n_downsampling=cfg.AE.n_downsampling,

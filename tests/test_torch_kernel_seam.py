@@ -1,4 +1,4 @@
-"""The seam between the port's modules and its three hand-written kernels, on
+"""The seam between the port's modules and its four hand-written kernels, on
 the CPU, one case per kernel (the kernels themselves run on the card:
 ``tests/test_torch_*_cuda.py``):
 
@@ -12,7 +12,8 @@ the CPU, one case per kernel (the kernels themselves run on the card:
   counted;
 - ``nn.layers.kernel_path``, the one rule of the call sites, is shut in
   training mode, under the ``xla`` and ``int8`` modes and for an input that
-  needs a gradient (and, at the non-local attention's site, for fp32), and
+  needs a gradient (and, at the non-local attention's and the decoder
+  tail's sites, for fp32), and
   open in eval mode under ``pallas`` when nothing needs a gradient, where
   each module's output is the plain path's;
 - no module under ``npvp_tpu_torch/kernels/`` imports from the layers above
@@ -31,6 +32,7 @@ torch.set_num_threads(1)
 
 from torch._subclasses.fake_tensor import FakeTensorMode  # noqa: E402
 
+from npvp_tpu_torch.kernels import decoder_head as dh  # noqa: E402
 from npvp_tpu_torch.kernels import layer_norm as ln  # noqa: E402
 from npvp_tpu_torch.kernels import nonlocal_attention as nla  # noqa: E402
 from npvp_tpu_torch.kernels import temporal_attention as ta  # noqa: E402
@@ -40,9 +42,10 @@ from npvp_tpu_torch.nn import vidhrformer as tv  # noqa: E402
 from npvp_tpu_torch.tools.weights import random_init  # noqa: E402
 
 BF16 = torch.bfloat16
-KERNELS = ["temporal_attention", "layer_norm", "nonlocal_attention"]
+KERNELS = ["temporal_attention", "layer_norm", "nonlocal_attention",
+           "decoder_head"]
 MODULE = {"temporal_attention": ta, "layer_norm": ln,
-          "nonlocal_attention": nla}
+          "nonlocal_attention": nla, "decoder_head": dh}
 
 
 def _rand(shape, seed=0, dtype=torch.float32, scale=1.0):
@@ -71,9 +74,15 @@ def _op_args(kernel):
                 (x, w, b, 1e-5, torch.float32, "gelu_tanh"),
                 lambda: ln.layer_norm_plain(x, w, b, 1e-5, torch.float32,
                                             "gelu_tanh"))
-    qkv = _rand((2, 6, 4, 96), 7, BF16, 2.0)
-    return ((qkv, 16), {}, (qkv, 16),
-            lambda: nla.nonlocal_attention_plain(qkv, 16))
+    if kernel == "nonlocal_attention":
+        qkv = _rand((2, 6, 4, 96), 7, BF16, 2.0)
+        return ((qkv, 16), {}, (qkv, 16),
+                lambda: nla.nonlocal_attention_plain(qkv, 16))
+    y = _rand((3, 6, 5, 8), 8, BF16)
+    a, b = (1 + _rand((8,), 9, BF16, 0.2), _rand((8,), 10, BF16, 0.3))
+    w, c = _rand((3, 8, 7, 7), 11, BF16, 0.1), _rand((3,), 12, BF16)
+    return ((y, a, b, w, c, "Tanh"), {}, (y, a, b, w, c, "Tanh"),
+            lambda: dh.decoder_head_plain(y, a, b, w, c, "Tanh"))
 
 
 @pytest.mark.parametrize("kernel", KERNELS)
@@ -164,6 +173,12 @@ class _Attend(torch.nn.Module):
             bo=None if self.wo is None else self.wo.bias)
 
 
+def _decoder(exec_mode, dtype=BF16):
+    """A decoder of one upsampling to 3 channels, its tail on the kernel
+    path under ``pallas``."""
+    return tae.ResnetDecoder(3, 4, 1, dtype=dtype, exec_mode=exec_mode)
+
+
 def _export_case(case):
     """(module, inputs, op calls a forward) of each export case."""
     if case.startswith("temporal_attention"):
@@ -172,6 +187,9 @@ def _export_case(case):
     if case == "layer_norm":  # three norms, the GELU as their epilogue
         mlp = tv.MlpDWBN(8, 16, 8, (4, 2), exec_mode="pallas").eval()
         return mlp, (_rand((2, 3, 4, 2, 8), 1),), 3
+    if case == "decoder_head":
+        mod = random_init(_decoder("pallas"), 0)
+        return mod.eval(), (_rand((2, 2, 4, 4, 8), 0),), 1
     mod = random_init(tae.NonLocalAttention2D(64, dtype=BF16,
                                               exec_mode="pallas"), 0)
     return mod.eval(), (_rand((1, 4, 4, 64), 0, BF16, 2.0),), 1
@@ -179,7 +197,7 @@ def _export_case(case):
 
 @pytest.mark.parametrize("case", ["temporal_attention_fused",
                                   "temporal_attention", "layer_norm",
-                                  "nonlocal_attention"])
+                                  "nonlocal_attention", "decoder_head"])
 def test_export_keeps_one_op_node_per_call(case):
     module, args, calls = _export_case(case)
     kernel = case.replace("_fused", "")
@@ -208,9 +226,12 @@ def _site(kernel, exec_mode, dtype=BF16):
     elif kernel == "layer_norm":
         mod = tv.MlpDWBN(8, 16, 8, (4, 2), exec_mode=exec_mode)
         args = (_rand((2, 3, 4, 2, 8), 1),)
-    else:
+    elif kernel == "nonlocal_attention":
         mod = tae.NonLocalAttention2D(64, dtype=dtype, exec_mode=exec_mode)
         args = (_rand((2, 4, 4, 64), 0, dtype, 2.0),)
+    else:
+        mod = _decoder(exec_mode, dtype)
+        args = (_rand((2, 2, 4, 4, 8), 0),)
     mod = random_init(mod, 3)
     with torch.no_grad():  # the norms away from their identity init
         for m in mod.modules():
@@ -219,6 +240,11 @@ def _site(kernel, exec_mode, dtype=BF16):
                 m.bias.add_(_rand(m.bias.shape, 5, scale=0.1))
             if isinstance(m, tae.NonLocalAttention2D):
                 m.gamma.fill_(0.75)
+            if isinstance(m, tl.BatchNorm):  # statistics away from init
+                m.running_mean.copy_(_rand(m.running_mean.shape, 6,
+                                           scale=0.1))
+                m.running_var.add_(_rand(m.running_var.shape, 7).abs())
+                m.bias.add_(_rand(m.bias.shape, 8, scale=0.2))
     return mod.eval().requires_grad_(False), args
 
 
@@ -239,13 +265,13 @@ def counted(monkeypatch):
 
 @pytest.mark.parametrize("kernel,case", [
     (k, c) for k in KERNELS for c in ("train", "xla", "int8", "grad")] + [
-    ("nonlocal_attention", "fp32")])
+    ("nonlocal_attention", "fp32"), ("decoder_head", "fp32")])
 def test_kernel_path_is_shut(counted, kernel, case):
     """Off the kernel path no wrapper is called (the attention's site, an
     encoder block, holds norms too) and nothing launches: training, the xla
     and int8 modes, an input that needs a gradient under autograd (the
-    forward and its backward run), and the non-local attention's fp32 (its
-    kernel is bf16 only)."""
+    forward and its backward run), and the non-local attention's and the
+    decoder tail's fp32 (their kernels are bf16 only)."""
     mode = case if case in ("xla", "int8") else "pallas"
     mod, args = _site(kernel, mode,
                       torch.float32 if case == "fp32" else BF16)
@@ -266,14 +292,15 @@ def test_kernel_path_is_shut(counted, kernel, case):
 @pytest.mark.parametrize("kernel,calls,exact", [
     ("temporal_attention", 2, False),   # a window and a temporal attention
     ("layer_norm", 3, True),
-    ("nonlocal_attention", 1, True)])
+    ("nonlocal_attention", 1, True),
+    ("decoder_head", 1, True)])
 def test_kernel_path_is_open_in_eval_mode(counted, kernel, calls, exact):
     """``pallas`` in eval mode with nothing that needs a gradient, under
     ``torch.no_grad()`` or not: each call goes to the wrapper (the op's
     CPU side, the twin), and the output is the ``xla`` module's (bit for
-    bit for the norm and the non-local attention, whose twins are their
-    eager code; within 2e-5 for the attention, whose plain path is the
-    library's)."""
+    bit for the norm, the non-local attention and the decoder's tail, whose
+    twins are their eager code; within 2e-5 for the attention, whose plain
+    path is the library's)."""
     mod, args = _site(kernel, "pallas")
     plain, _ = _site(kernel, "xla")
     with torch.no_grad():

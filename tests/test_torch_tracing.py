@@ -41,15 +41,18 @@ T = 8
 # the encoder's non-local attentions: one a ConvAttn block of the tiny AE
 # (n_downsampling − 1 + num_res_blocks), each inside its npvp.ae.encode
 NONLOCAL, NONLOCAL_CALLS = "npvp.ae.nonlocal", 3
+# the decoder's tail, one inside each npvp.ae.decode
+HEAD = "npvp.ae.head"
 SERVE = {"npvp.serve.request", "npvp.ae.encode", "npvp.predictor",
          "npvp.predictor.nrmlp", "npvp.predictor.encoder",
          "npvp.predictor.latent", "npvp.predictor.decoder", "npvp.ae.decode",
-         NONLOCAL}
+         NONLOCAL, HEAD}
 PREDICTOR_PARTS = {"npvp.predictor.nrmlp", "npvp.predictor.encoder",
                    "npvp.predictor.latent", "npvp.predictor.decoder"}
 TRAIN = {"npvp.train.step", "npvp.train.forward", "npvp.train.backward",
          "npvp.train.optimizer", "npvp.train.clip", "npvp.ae.encode",
-         "npvp.predictor", "npvp.ae.decode", NONLOCAL} | PREDICTOR_PARTS
+         "npvp.predictor", "npvp.ae.decode", NONLOCAL,
+         HEAD} | PREDICTOR_PARTS
 
 
 def _counts_as_expected(by):
@@ -175,6 +178,7 @@ def test_the_spans_of_one_request_nest_and_share_its_root(vp, entry):
     for name in PREDICTOR_PARTS:
         assert parent[name] == pred
     assert {r.parent for r in by[NONLOCAL]} == {by["npvp.ae.encode"][0].id}
+    assert parent[HEAD] == by["npvp.ae.decode"][0].id
 
 
 def _train_program(seed=5):
